@@ -1,0 +1,284 @@
+"""Causal token decoder with support cross-attention and deformable image
+cross-attention, plus iterative coordinate refinement: the port of the v1
+decode path of `cape_tpu.models.decoder`.
+
+Per layer (`deformable_transformer_v2.py:320-370`): pre-projections
+attn_q/k/v (no bias) -> causal self-attention over a KV cache (+query_pos
+on q only) -> support cross-attention with key-padding mask -> deformable
+cross-attention at the refined reference point (+query_pos) against the
+layer's precomputed quad slab -> FFN; post-LN residuals throughout.
+Refinement: ref = sigmoid(offset + inv_sigmoid(ref)) per layer, anchors =
+sigmoid(learned query_embed), both in fp32.
+
+The teacher-forced `forward_train`, the v2-v6 layer variants and the
+unpacked-value decode (`CAPE_DECODE_PREQUAD=0`) wait for later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .attention import MultiHeadAttention
+from .deformable import MSDeformAttn
+from .layers import Dense, LayerNorm, normal_, zeros_
+from .position_encoding import query_sine_embed
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Parity with `util/misc.py:436-440`."""
+    x = x.clamp(0.0, 1.0)
+    x1 = x.clamp(min=eps)
+    x2 = (1.0 - x).clamp(min=eps)
+    return torch.log(x1 / x2)
+
+
+class MLPHead(nn.Module):
+    """3-layer MLP coords head with a zero-init final layer."""
+
+    def __init__(self, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.layers = nn.ModuleList([Dense(hidden_dim, hidden_dim),
+                                     Dense(hidden_dim, hidden_dim),
+                                     Dense(hidden_dim, out_dim)])
+
+    def init_weights(self, g: torch.Generator) -> None:
+        zeros_(self.layers[2].weight)
+        zeros_(self.layers[2].bias)
+
+    def forward(self, x):
+        x = F.relu(self.layers[0](x))
+        x = F.relu(self.layers[1](x))
+        return self.layers[2](x)
+
+
+class LayerCache(NamedTuple):
+    """Self-attention KV cache of one decoder layer, updated in place."""
+
+    k: torch.Tensor  # (B, H, L, Dh)
+    v: torch.Tensor  # (B, H, L, Dh)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int = 256, d_ffn: int = 1024,
+                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
+                 use_pallas: bool = False):
+        super().__init__()
+        # q/k/v pre-projections before self-attention (`dtv2:276-282`)
+        self.attn_q = Dense(d_model, d_model, bias=False)
+        self.attn_k = Dense(d_model, d_model, bias=False)
+        self.attn_v = Dense(d_model, d_model, bias=False)
+        self.self_attn = MultiHeadAttention(d_model, n_heads)
+        self.norm2 = LayerNorm(d_model)
+        self.support_attn = MultiHeadAttention(d_model, n_heads)
+        self.norm_support = LayerNorm(d_model)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                       use_pallas=use_pallas)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = Dense(d_model, d_ffn)
+        self.linear2 = Dense(d_ffn, d_model)
+        self.norm3 = LayerNorm(d_model)
+
+    # -- static-input projections (decode-time caching) ----------------
+    def support_kv(self, support_features):
+        return self.support_attn.project_kv(support_features)
+
+    def memory_quads(self, memory, spatial_shapes):
+        return self.cross_attn.project_value_quads(memory, spatial_shapes)
+
+    def _ffn(self, x):
+        y = self.linear2(F.relu(self.linear1(x)))
+        return self.norm3(x + y)
+
+    def _post_self(self, tgt, quad_slab, spatial_shapes, query_pos,
+                   reference_points, support_k, support_v, support_mask):
+        """Support cross-attn + deformable cross-attn (against the quad
+        slab, `prequad=True` in the JAX package) + FFN."""
+        s2 = self.support_attn.attend(tgt, support_k, support_v,
+                                      key_padding_mask=support_mask)
+        tgt = self.norm_support(tgt + s2)
+        c2 = self.cross_attn.step_call(tgt + query_pos, reference_points,
+                                       quad_slab, spatial_shapes)
+        tgt = self.norm1(tgt + c2)
+        return self._ffn(tgt)
+
+    def forward_step(
+        self,
+        tgt_t: torch.Tensor,               # (B, 1, D)
+        query_pos_t: torch.Tensor,         # (B, 1, D)
+        reference_points_t: torch.Tensor,  # (B, 1, n_levels, 2)
+        quad_slab: torch.Tensor,           # (B*H, S', 4*Dh)
+        spatial_shapes: Sequence[Tuple[int, int]],
+        cache: LayerCache,
+        pos_index: int,
+        support_k: torch.Tensor,
+        support_v: torch.Tensor,
+        support_mask: torch.Tensor,
+    ) -> Tuple[torch.Tensor, LayerCache]:
+        """One token against the KV cache. The cache is written in place at
+        `pos_index` (the JAX package returns an updated copy)."""
+        q = self.attn_q(tgt_t) + query_pos_t
+        k_t, v_t = self.self_attn.project_kv_pre(
+            self.attn_k(tgt_t), self.attn_v(tgt_t))      # (B, H, 1, Dh)
+        cache.k[:, :, pos_index:pos_index + 1] = k_t
+        cache.v[:, :, pos_index:pos_index + 1] = v_t
+        # mask future (unwritten) cache slots
+        L = cache.k.shape[2]
+        future = torch.arange(L, device=q.device)[None, :] > pos_index
+        t2 = self.self_attn.attend(q, cache.k, cache.v,
+                                   attn_mask=future[None])
+        tgt = self.norm2(tgt_t + t2)
+        out = self._post_self(tgt, quad_slab, spatial_shapes, query_pos_t,
+                              reference_points_t, support_k, support_v,
+                              support_mask)
+        return out, cache
+
+
+class Decoder(nn.Module):
+    """Token embedding + N v1 decoder layers + per-layer refinement heads."""
+
+    def __init__(self, num_layers: int = 6, d_model: int = 256,
+                 d_ffn: int = 1024, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, vocab_size: int = 1940,
+                 seq_len: int = 200, num_classes: int = 3,
+                 pad_id: int = 1939, use_pallas: bool = False,
+                 query_pos_type: str = "sine",
+                 poly_refine: bool = True):
+        super().__init__()
+        if query_pos_type not in ("sine", "none"):
+            raise ValueError(
+                f"query_pos_type={query_pos_type!r}: the reference decoder "
+                "supports 'sine' and 'none' only")
+        self.num_layers, self.d_model = num_layers, d_model
+        self.n_levels, self.n_heads = n_levels, n_heads
+        self.pad_id = pad_id
+        self.query_pos_type = query_pos_type
+        self.poly_refine = poly_refine
+        # no padding_idx: the JAX package trains the pad row, it is only
+        # zero at initialisation
+        self.token_embed = nn.Embedding(vocab_size, d_model)
+        # learned coordinate anchors, kept in fp32
+        self.query_embed = nn.Parameter(torch.zeros(seq_len, 2))
+        if query_pos_type == "sine":
+            self.pos_trans = Dense(d_model, d_model)
+            self.pos_trans_norm = LayerNorm(d_model)
+        self.layers = nn.ModuleList([
+            DecoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
+                         use_pallas=use_pallas)
+            for _ in range(num_layers)])
+        self.class_heads = nn.ModuleList(
+            [Dense(d_model, num_classes) for _ in range(num_layers)])
+        # without poly_refine only the last layer's head exists (the JAX
+        # package creates a head's parameters only where it is applied)
+        self.coords_heads = nn.ModuleDict(
+            {str(i): MLPHead(d_model, 2) for i in range(num_layers)
+             if poly_refine or i == num_layers - 1})
+
+    def init_weights(self, g: torch.Generator) -> None:
+        normal_(self.token_embed.weight, self.d_model ** -0.5, g)
+        zeros_(self.token_embed.weight[self.pad_id])
+        normal_(self.query_embed, 1.0, g)
+        bias = -math.log((1 - 0.01) / 0.01)
+        for head in self.class_heads:
+            with torch.no_grad():
+                head.bias.fill_(bias)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.token_embed.weight.dtype
+
+    # ------------------------------------------------------------------
+    def seq_embed(self, seq11, seq12, seq21, seq22,
+                  delta_x1, delta_x2, delta_y1, delta_y2) -> torch.Tensor:
+        """Bilinear 4-corner token embedding (`dtv2:984-997`); fp32 deltas
+        promote the result to fp32, as in the JAX package."""
+        e11 = self.token_embed(seq11)
+        e21 = self.token_embed(seq21)
+        e12 = self.token_embed(seq12)
+        e22 = self.token_embed(seq22)
+        return (e11 * (delta_x2 * delta_y2)[..., None]
+                + e21 * (delta_x1 * delta_y2)[..., None]
+                + e12 * (delta_x2 * delta_y1)[..., None]
+                + e22 * (delta_x1 * delta_y1)[..., None])
+
+    def anchors(self) -> torch.Tensor:
+        return torch.sigmoid(self.query_embed.float())
+
+    def _query_pos(self, ref: torch.Tensor) -> torch.Tensor:
+        if self.query_pos_type == "none":
+            return torch.zeros(ref.shape[:-1] + (self.d_model,),
+                               dtype=self.dtype, device=ref.device)
+        pe = query_sine_embed(ref, self.d_model // 2).to(self.dtype)
+        return self.pos_trans_norm(self.pos_trans(pe))
+
+    def _refine(self, lid: int, x: torch.Tensor,
+                ref: torch.Tensor) -> torch.Tensor:
+        """Layer-lid coordinate refinement of the reference point (fp32).
+
+        poly_refine: every layer refines. Otherwise only the final layer
+        applies its offset to the anchor (use_anchor branch).
+        """
+        if not self.poly_refine and lid != self.num_layers - 1:
+            return ref
+        offset = self.coords_heads[str(lid)](x).float()
+        return torch.sigmoid(offset + inverse_sigmoid(ref))
+
+    # ------------------------------------------------------------------
+    def precompute_static(self, memory, support_features, spatial_shapes):
+        """Per-layer quad slabs of the projected memory, and support K/V:
+        the decode-time-constant inputs, computed once per request."""
+        quad_slabs = [l.memory_quads(memory, spatial_shapes)
+                      for l in self.layers]
+        support_kvs = [l.support_kv(support_features) for l in self.layers]
+        return quad_slabs, support_kvs
+
+    def init_caches(self, batch: int, length: int,
+                    device: torch.device) -> List[LayerCache]:
+        dh = self.d_model // self.n_heads
+        shape = (batch, self.n_heads, length, dh)
+        return [LayerCache(torch.zeros(shape, dtype=self.dtype, device=device),
+                           torch.zeros(shape, dtype=self.dtype, device=device))
+                for _ in self.layers]
+
+    def forward_step(
+        self,
+        token_inputs: Dict[str, torch.Tensor],   # (B, 1) tensors
+        pos_index: int,
+        quad_slabs: List[torch.Tensor],
+        spatial_shapes,
+        support_kvs,                              # list[(k, v)]
+        support_mask: torch.Tensor,
+        caches: List[LayerCache],
+    ):
+        """One autoregressive step.
+
+        Returns:
+            logits: (B, 1, num_classes) — final layer class head
+            coords: (B, 1, 2) — final refined reference point (fp32)
+            caches (updated in place)
+        """
+        x = self.seq_embed(
+            token_inputs["seq11"], token_inputs["seq12"],
+            token_inputs["seq21"], token_inputs["seq22"],
+            token_inputs["delta_x1"], token_inputs["delta_x2"],
+            token_inputs["delta_y1"], token_inputs["delta_y2"],
+        )
+        B = x.shape[0]
+        anchor = self.anchors()[pos_index:pos_index + 1]       # (1, 2)
+        ref = anchor[None].expand(B, 1, 2)
+
+        for lid, layer in enumerate(self.layers):
+            query_pos = self._query_pos(ref)
+            ref_input = ref[:, :, None, :].expand(B, 1, self.n_levels, 2)
+            sk, sv = support_kvs[lid]
+            x, _ = layer.forward_step(
+                x, query_pos, ref_input, quad_slabs[lid], spatial_shapes,
+                caches[lid], pos_index, sk, sv, support_mask)
+            ref = self._refine(lid, x, ref)
+        # only the last layer's class head is read at decode time
+        logits = self.class_heads[-1](x)
+        return logits, ref, caches

@@ -1,0 +1,270 @@
+"""Multi-scale deformable attention core: the port of `cape_tpu.ops.msda`.
+
+Bilinear semantics match `F.grid_sample(mode='bilinear',
+padding_mode='zeros', align_corners=False)`: with normalized location
+`loc` in [0,1] the continuous pixel coordinate is `loc * size - 0.5`, and
+out-of-bounds corners contribute zero.
+
+The production formulation is the JAX package's quad rows: per level, the
+2x2 neighbourhood of every grid cell is packed into one 4*Dh-wide row, so
+each sample is ONE row gather (`ops.gather.quad_gather`, the hand-written
+kernel on the card) followed by a weighted corner/point sum.
+
+- `ms_deform_attn_core`: the encoder and teacher-forced sites. Heads fold
+  into the gather's batch, so it gathers once per level instead of once
+  per (level, head) as the JAX package does: the same function with H x
+  fewer launches.
+- `precompute_quad_slab` + `ms_deform_attn_core_prequad`: the decode step,
+  which packs the frozen memory once and samples every (batch, head)'s
+  L*P points with one gather per layer and step.
+- `ms_deform_attn_core_naive`: the direct 4-corner gather, the test oracle.
+- `ms_deform_attn`: `use_pallas=True` selects the whole-op kernel of
+  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`).
+
+The device alone picks kernel or plain version: there are no backend
+knobs (the JAX package's CAPE_MSDA_* variables are not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .gather import quad_gather
+from .msda_kernel import ms_deform_attn_pallas
+
+Shapes = Sequence[Tuple[int, int]]
+
+
+def _level_offsets(spatial_shapes: Shapes) -> Tuple[int, ...]:
+    offs, start = [], 0
+    for (h, w) in spatial_shapes:
+        offs.append(start)
+        start += h * w
+    return tuple(offs)
+
+
+def _quad_rows(level_value: torch.Tensor, Wl: int) -> torch.Tensor:
+    """(B, HW, Dh) level slice -> (B, F+HW, 4*Dh) quad rows.
+
+    Row `F + s` holds [v[s], v[s+1], v[s+Wl], v[s+Wl+1]] — the 2x2 bilinear
+    neighborhood of flat cell s, contiguous along the last dimension.
+    F = Wl+1 front padding keeps base indices down to -Wl-1 (corner cell
+    (-1,-1)) in range; every out-of-bounds corner gets zero weight, so the
+    wrap-around neighbors a flat index picks up at row edges are harmless.
+    """
+    B, HW, Dh = level_value.shape
+    Fp = Wl + 1
+    vp = F.pad(level_value, (0, 0, Fp, Wl + 1))
+    n = Fp + HW
+    quad = torch.stack(
+        [vp[:, 0:n], vp[:, 1:n + 1],
+         vp[:, Wl:n + Wl], vp[:, Wl + 1:n + Wl + 1]], dim=2)
+    return quad.reshape(B, n, 4 * Dh)
+
+
+def _quad_bases_and_weights(
+        spatial_shapes: Shapes, sampling_locations: torch.Tensor,
+        attention_weights: torch.Tensor,
+        dtype: torch.dtype) -> Iterator[Tuple[int, torch.Tensor,
+                                              torch.Tensor]]:
+    """Per level: base row index (F-offset folded in) + 4 corner weights.
+
+    base: (B, Lq, H, P) int32 into the level's quad-row array;
+    w4:   (B, Lq, H, P, 4) bilinear * attention weight, zeroed where the
+          corner is out of bounds (validity judged on the UNCLIPPED corner
+          coordinate — the grid_sample zeros-padding contract).
+    """
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl]
+        w_attn = attention_weights[:, :, :, lvl]
+        x = loc[..., 0] * Wl - 0.5
+        y = loc[..., 1] * Hl - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0).to(dtype)
+        fy = (y - y0).to(dtype)
+        x0u = x0.to(torch.int32)
+        y0u = y0.to(torch.int32)
+        x0c = x0u.clamp(-1, Wl - 1)
+        y0c = y0u.clamp(-1, Hl - 1)
+        base = (Wl + 1) + y0c * Wl + x0c
+        ws = []
+        for dxi, dyi, wgt in (
+            (0, 0, (1 - fx) * (1 - fy)),
+            (1, 0, fx * (1 - fy)),
+            (0, 1, (1 - fx) * fy),
+            (1, 1, fx * fy),
+        ):
+            cx = x0u + dxi
+            cy = y0u + dyi
+            valid = (cx >= 0) & (cx < Wl) & (cy >= 0) & (cy < Hl)
+            ws.append((wgt * valid.to(dtype) * w_attn).to(dtype))
+        yield lvl, base.to(torch.int32), torch.stack(ws, dim=-1)
+
+
+def ms_deform_attn_core(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Sample multi-level features at fractional locations and blend.
+
+    Args:
+        value: (B, S, H, Dh) flattened multi-level features, S = sum(H_l*W_l).
+        spatial_shapes: (H_l, W_l) per level.
+        sampling_locations: (B, Lq, H, L, P, 2) normalized (x, y) in [0,1].
+        attention_weights: (B, Lq, H, L, P) softmax weights over L*P.
+
+    Returns:
+        (B, Lq, H * Dh) attended features.
+    """
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError("levels mismatch")
+
+    offs = _level_offsets(spatial_shapes)
+    vt = value.transpose(1, 2).reshape(B * H, S, Dh)
+    out = None
+    for lvl, base, w4 in _quad_bases_and_weights(
+            spatial_shapes, sampling_locations, attention_weights,
+            value.dtype):
+        Hl, Wl = spatial_shapes[lvl]
+        quad = _quad_rows(vt[:, offs[lvl]:offs[lvl] + Hl * Wl], Wl)
+        gi = base.transpose(1, 2).reshape(B * H, Lq * P)
+        g = quad_gather(quad, gi).reshape(B * H, Lq, P * 4, Dh)
+        w = w4.transpose(1, 2).reshape(B * H, Lq, P * 4, 1)
+        lvl_out = (g * w).sum(dim=2)                     # (B*H, Lq, Dh)
+        out = lvl_out if out is None else out + lvl_out
+    return out.reshape(B, H, Lq, Dh).transpose(1, 2).reshape(B, Lq, H * Dh)
+
+
+def quad_level_offsets(spatial_shapes: Shapes) -> Tuple[int, ...]:
+    """Row offset of each level inside the flat quad slab.
+
+    Level l occupies rows [off_l, off_l + (W_l+1) + H_l*W_l) — the
+    `_quad_rows` layout (front pad F = W_l+1 included).
+    """
+    offs, start = [], 0
+    for (h, w) in spatial_shapes:
+        offs.append(start)
+        start += (w + 1) + h * w
+    return tuple(offs)
+
+
+def precompute_quad_slab(value: torch.Tensor,
+                         spatial_shapes: Shapes) -> torch.Tensor:
+    """(B, S, H, Dh) projected value -> (B*H, S', 4*Dh) flat quad slab.
+
+    Decode-time prepack: the encoder memory is frozen across the
+    autoregressive loop, so its quad rows are packed ONCE and each decode
+    step's MSDA is one gather from this slab (`..._prequad`).
+    S' = sum over levels of (W_l+1) + H_l*W_l.
+    """
+    B, S, H, Dh = value.shape
+    vt = value.transpose(1, 2).reshape(B * H, S, Dh)
+    offs = _level_offsets(spatial_shapes)
+    return torch.cat([_quad_rows(vt[:, offs[l]:offs[l] + Hl * Wl], Wl)
+                      for l, (Hl, Wl) in enumerate(spatial_shapes)], dim=1)
+
+
+def ms_deform_attn_core_prequad(
+    quad_slab: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Decode-step core against a precomputed quad slab.
+
+    Same function as `ms_deform_attn_core`, with the packing hoisted out
+    (`precompute_quad_slab`) and all L*P samples of every (batch, head) in
+    ONE gather.
+
+    Args:
+        quad_slab: (B*H, S', 4*Dh) from `precompute_quad_slab`.
+        sampling_locations: (B, Lq, H, L, P, 2); attention_weights
+            (B, Lq, H, L, P) as in `ms_deform_attn_core`.
+    """
+    BH, _, C = quad_slab.shape
+    Dh = C // 4
+    B, Lq, H, L, P, _ = sampling_locations.shape
+    if BH != B * H or L != len(spatial_shapes):
+        raise ValueError("quad slab does not match the sampling shapes")
+
+    qoffs = quad_level_offsets(spatial_shapes)
+    bases, weights = [], []
+    for lvl, base, w4 in _quad_bases_and_weights(
+            spatial_shapes, sampling_locations, attention_weights,
+            quad_slab.dtype):
+        bases.append(base + qoffs[lvl])   # (B, Lq, H, P) global rows
+        weights.append(w4)                # (B, Lq, H, P, 4)
+    gi = torch.stack(bases, dim=3)        # (B, Lq, H, L, P)
+    gi = gi.movedim(2, 1).reshape(B * H, Lq * L * P).to(torch.int32)
+    w = torch.stack(weights, dim=3)       # (B, Lq, H, L, P, 4)
+    w = w.movedim(2, 1).reshape(B * H, Lq, L * P * 4, 1)
+    g = quad_gather(quad_slab, gi).reshape(B * H, Lq, L * P * 4, Dh)
+    out = (g * w).sum(dim=2)              # (B*H, Lq, Dh)
+    return out.reshape(B, H, Lq, Dh).transpose(1, 2).reshape(B, Lq, H * Dh)
+
+
+def ms_deform_attn_core_naive(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Direct 4-corner-gather formulation — the numerical oracle of the
+    tests (one narrow gather per bilinear corner)."""
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError("levels mismatch")
+
+    value_bh = value.transpose(1, 2)                       # (B, H, S, Dh)
+    out = torch.zeros((B, H, Lq, Dh), dtype=value.dtype, device=value.device)
+    level_start = 0
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl]
+        w_attn = attention_weights[:, :, :, lvl]
+        x = loc[..., 0] * Wl - 0.5
+        y = loc[..., 1] * Hl - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0).to(value.dtype)
+        fy = (y - y0).to(value.dtype)
+        x0i = x0.to(torch.int64)
+        y0i = y0.to(torch.int64)
+        for dxi, dyi, wgt in (
+            (0, 0, (1 - fx) * (1 - fy)),
+            (1, 0, fx * (1 - fy)),
+            (0, 1, (1 - fx) * fy),
+            (1, 1, fx * fy),
+        ):
+            cx = x0i + dxi
+            cy = y0i + dyi
+            valid = (cx >= 0) & (cx < Wl) & (cy >= 0) & (cy < Hl)
+            idx = level_start + cy.clamp(0, Hl - 1) * Wl + cx.clamp(0, Wl - 1)
+            w = (wgt * valid.to(value.dtype) * w_attn).to(value.dtype)
+            idx_bh = idx.transpose(1, 2).reshape(B, H, Lq * P, 1)
+            gathered = torch.gather(value_bh, 2, idx_bh.expand(-1, -1, -1, Dh))
+            w_bh = w.transpose(1, 2).reshape(B, H, Lq * P, 1)
+            out = out + (gathered * w_bh).reshape(B, H, Lq, P, Dh).sum(dim=3)
+        level_start += Hl * Wl
+
+    return out.transpose(1, 2).reshape(B, Lq, H * Dh)
+
+
+def ms_deform_attn(value, spatial_shapes, sampling_locations,
+                   attention_weights, use_pallas: bool = False):
+    """Backend dispatch: `use_pallas=True` runs the whole-op kernel of
+    `ops.msda_kernel` (forward only; its autograd function waits for the
+    training slice), else the quad-row core."""
+    if not use_pallas:
+        return ms_deform_attn_core(
+            value, spatial_shapes, sampling_locations, attention_weights)
+    return ms_deform_attn_pallas(value, spatial_shapes, sampling_locations,
+                                 attention_weights)
