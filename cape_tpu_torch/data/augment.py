@@ -1,5 +1,6 @@
 """The deterministic resize of `cape_tpu.data.augment` (val/test and
-serving path). The train-time augmentations wait for the training slice."""
+serving path). The train-time augmentations wait for the data-pipeline
+slice, with the host training loop."""
 
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ Masking adds the FINITE `NEG_INF = -1e9`, as the JAX package does: a row
 whose keys are all masked gets uniform weights instead of NaN, which the
 support encoder's all-masked guard relies on. So the logits and softmax
 are written out in fp32 here, not left to `scaled_dot_product_attention`.
+Dropout acts on the attention weights when a generator is passed.
 """
 
 from __future__ import annotations
@@ -16,18 +17,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import Dense
+from .layers import Dense, dropout
 
 NEG_INF = -1e9  # large-negative mask value (finite: avoids NaN on all-masked rows)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be divisible by num_heads")
         self.d_model = d_model
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = Dense(d_model, d_model)
         self.k_proj = Dense(d_model, d_model)
         self.v_proj = Dense(d_model, d_model)
@@ -54,6 +56,7 @@ class MultiHeadAttention(nn.Module):
         v: torch.Tensor,
         attn_mask: Optional[torch.Tensor] = None,
         key_padding_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Attention with pre-projected K/V.
 
@@ -63,6 +66,7 @@ class MultiHeadAttention(nn.Module):
             attn_mask: additive (Lq, Lk) or (B, Lq, Lk) float mask, or a
                 boolean mask where True = MASKED (torch convention).
             key_padding_mask: (B, Lk) boolean, True = ignore key.
+            generator: dropout masks on the weights; None = deterministic.
         """
         b, lq, _ = q_in.shape
         dh = self.d_model // self.num_heads
@@ -84,10 +88,12 @@ class MultiHeadAttention(nn.Module):
                                         NEG_INF)
 
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
+        weights = dropout(weights, self.dropout, generator)
         out = torch.matmul(weights, v)
         out = out.transpose(1, 2).reshape(b, lq, self.d_model)
         return self.out_proj(out)
 
-    def forward(self, q_in, kv_in, attn_mask=None, key_padding_mask=None):
+    def forward(self, q_in, kv_in, attn_mask=None, key_padding_mask=None,
+                generator=None):
         k, v = self.project_kv(kv_in)
-        return self.attend(q_in, k, v, attn_mask, key_padding_mask)
+        return self.attend(q_in, k, v, attn_mask, key_padding_mask, generator)

@@ -1,19 +1,21 @@
 """CAPE model: backbone -> deformable encoder -> support-conditioned causal
-decoder, plus the autoregressive decode loop: the port of the serving path
-of `cape_tpu.models.cape`.
+decoder, plus the autoregressive decode loop: the port of
+`cape_tpu.models.cape`.
 
 - One module, one parameter set, built and initialised on an explicit
   device from an explicit `torch.Generator` (seeded by `cfg.seed` when none
   is given).
 - Compute dtype: bf16 when `cfg.bf16`, with the JAX package's fp32
   islands kept in fp32 (the sampling-offset projections and the decoder's
-  anchor embedding; see `_cast`).
+  anchor embedding; see `_cast`). The module's parameters are in the
+  compute dtype; training keeps fp32 masters of them in the optimizer
+  (`train.state`), as flax keeps fp32 parameters and computes in bf16.
+- `forward` is the teacher-forced training call; dropout draws from the
+  `torch.Generator` it is given, and `generator=None` is deterministic.
 - `autoregressive_decode` generates up to `seq_len` tokens with static KV
   caches and on-device re-tokenization and token-type branching, exiting
   once every sample has emitted EOS. The JAX `while_loop` becomes a Python
   loop here.
-
-The teacher-forced forward (training) waits for the training slice.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def level_shapes(image_size: int, num_levels: int,
 
 
 def _unsupported(cfg: CAPEConfig) -> Optional[str]:
-    """The config options the serving slice does not port (yet)."""
+    """The config options the port does not have (yet)."""
     if cfg.support_fusion_method != "cross_attention":
         return (f"support_fusion_method={cfg.support_fusion_method!r}: only "
                 "'cross_attention' is functional (matches the reference)")
@@ -60,15 +62,17 @@ def _unsupported(cfg: CAPEConfig) -> Optional[str]:
         return (f"dec_layer_type={cfg.dec_layer_type!r}: the port has the v1 "
                 "decoder layer only")
     if cfg.dec_attn_concat_src:
-        return ("dec_attn_concat_src is a teacher-forced-only option of the "
-                "JAX package; the port decodes only")
+        return ("dec_attn_concat_src (a train-only option of the JAX "
+                "package) is not ported yet: it is queued in ROADMAP.md")
     if not cfg.dec_qkv_proj:
-        return "dec_qkv_proj=False (identity q/k/v pre-projections) is not ported"
+        return ("dec_qkv_proj=False (identity q/k/v pre-projections, a "
+                "train-only option) is not ported yet: it is queued in "
+                "ROADMAP.md")
     return None
 
 
 class CAPE(nn.Module):
-    """Full category-agnostic pose estimation model (serving path)."""
+    """Full category-agnostic pose estimation model."""
 
     def __init__(self, cfg: CAPEConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -90,18 +94,22 @@ class CAPE(nn.Module):
                              nn.GroupNorm(32, d, eps=1e-5))])
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         self.encoder = DeformableEncoder(
-            cfg.enc_layers, d, cfg.dim_feedforward, cfg.num_feature_levels,
-            cfg.nheads, cfg.enc_n_points, use_pallas=cfg.use_pallas_msda)
+            cfg.enc_layers, d, cfg.dim_feedforward, dropout=cfg.dropout,
+            n_levels=cfg.num_feature_levels, n_heads=cfg.nheads,
+            n_points=cfg.enc_n_points, remat=cfg.use_remat_encoder,
+            use_pallas=cfg.use_pallas_msda)
         self.decoder = Decoder(
-            cfg.dec_layers, d, cfg.dim_feedforward, cfg.num_feature_levels,
-            cfg.nheads, cfg.dec_n_points, vocab_size=cfg.token_vocab_size,
+            cfg.dec_layers, d, cfg.dim_feedforward, dropout=cfg.dropout,
+            n_levels=cfg.num_feature_levels, n_heads=cfg.nheads,
+            n_points=cfg.dec_n_points, vocab_size=cfg.token_vocab_size,
             seq_len=cfg.seq_len, num_classes=cfg.num_token_classes,
             pad_id=cfg.num_bins * cfg.num_bins + 3,
             use_pallas=cfg.use_pallas_msda, query_pos_type=cfg.query_pos_type,
             poly_refine=cfg.with_poly_refine)
         self.support_encoder = GeometricSupportEncoder(
             d, cfg.support_encoder_layers, cfg.nheads, cfg.dim_feedforward,
-            use_gcn=cfg.use_gcn_preenc, num_gcn_layers=cfg.num_gcn_layers,
+            dropout=cfg.dropout, use_gcn=cfg.use_gcn_preenc,
+            num_gcn_layers=cfg.num_gcn_layers,
             max_seq_pe=max(cfg.max_support_keypoints, 100))
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
@@ -150,7 +158,9 @@ class CAPE(nn.Module):
             self._pe_cache[key] = pe
         return pe
 
-    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+    def encode_image(self, images: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
         """(B, S, S, 3) uint8 or float32 NHWC -> (B, sum(Hl*Wl), D) memory.
 
         uint8 input is normalized on the device in fp32 (/255, then the
@@ -169,9 +179,11 @@ class CAPE(nn.Module):
         srcs = [self.input_projs[i](feats[i]) for i in range(3)]
         if self.cfg.num_feature_levels > 3:
             srcs.append(self.input_projs[3](feats[-1]))
-        return self.encode_features(srcs)
+        return self.encode_features(srcs, generator)
 
-    def encode_features(self, srcs) -> torch.Tensor:
+    def encode_features(self, srcs,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
         """Post-projection NCHW levels (B, D, Hl, Wl) -> encoder memory.
 
         Each level flattens row-major to (B, Hl*Wl, D), the JAX package's
@@ -185,11 +197,42 @@ class CAPE(nn.Module):
             pos_flat.append(lvl_pos.expand(b, h * w, d))
         src_flat = torch.cat(flat, dim=1)
         pos = torch.cat(pos_flat, dim=1)
-        return self.encoder(src_flat, pos, self.spatial_shapes)
+        return self.encoder(src_flat, pos, self.spatial_shapes, generator)
 
-    def encode_support(self, coords, mask, skeleton_edges) -> torch.Tensor:
+    def encode_support(self, coords, mask, skeleton_edges,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
         return self.support_encoder(coords.to(self.dtype), mask,
-                                    skeleton_edges)
+                                    skeleton_edges, generator)
+
+    # ------------------------------------------------------------------
+    def forward(self, images, support_coords, support_mask, skeleton_edges,
+                targets: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced training forward (`CAPE.__call__` of the JAX
+        package). `generator` draws the dropout masks on the model's
+        device; None is `deterministic=True`.
+
+        Returns dict: pred_logits (B, L, 3), pred_coords (B, L, 2),
+        aux_classes/aux_coords (num_layers-1, B, L, ...) when aux_loss; all
+        fp32.
+        """
+        memory = self.encode_image(images, generator)
+        support = self.encode_support(support_coords, support_mask,
+                                      skeleton_edges, generator)
+        seq_kwargs = {k: targets[k] for k in (
+            "seq11", "seq12", "seq21", "seq22",
+            "delta_x1", "delta_x2", "delta_y1", "delta_y2")}
+        classes, refs = self.decoder.forward_train(
+            seq_kwargs, memory, self.spatial_shapes, support, support_mask,
+            generator)
+        out = {"pred_logits": classes[-1].float(),
+               "pred_coords": refs[-1].float()}
+        if self.cfg.aux_loss:
+            out["aux_classes"] = classes[:-1].float()
+            out["aux_coords"] = refs[:-1].float()
+        return out
 
     def decode_static(self, memory, support_features):
         return self.decoder.precompute_static(memory, support_features,

@@ -10,14 +10,17 @@ layer's precomputed quad slab -> FFN; post-LN residuals throughout.
 Refinement: ref = sigmoid(offset + inv_sigmoid(ref)) per layer, anchors =
 sigmoid(learned query_embed), both in fp32.
 
-The teacher-forced `forward_train`, the v2-v6 layer variants and the
-unpacked-value decode (`CAPE_DECODE_PREQUAD=0`) wait for later slices.
+Two paths share one parameter set: `forward_train`, the teacher-forced
+full sequence under an additive causal mask (training, with dropout when a
+generator is passed), and `forward_step`, one token against the KV caches
+(serving). The v2-v6 layer variants and the unpacked-value decode
+(`CAPE_DECODE_PREQUAD=0`) wait for later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from .attention import MultiHeadAttention
 from .deformable import MSDeformAttn
-from .layers import Dense, LayerNorm, normal_, zeros_
+from .layers import Dense, LayerNorm, dropout, normal_, zeros_
 from .position_encoding import query_sine_embed
 
 
@@ -65,16 +68,17 @@ class LayerCache(NamedTuple):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
-                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
-                 use_pallas: bool = False):
+                 dropout: float = 0.1, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, use_pallas: bool = False):
         super().__init__()
+        self.dropout = dropout
         # q/k/v pre-projections before self-attention (`dtv2:276-282`)
         self.attn_q = Dense(d_model, d_model, bias=False)
         self.attn_k = Dense(d_model, d_model, bias=False)
         self.attn_v = Dense(d_model, d_model, bias=False)
-        self.self_attn = MultiHeadAttention(d_model, n_heads)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.norm2 = LayerNorm(d_model)
-        self.support_attn = MultiHeadAttention(d_model, n_heads)
+        self.support_attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.norm_support = LayerNorm(d_model)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        use_pallas=use_pallas)
@@ -90,21 +94,56 @@ class DecoderLayer(nn.Module):
     def memory_quads(self, memory, spatial_shapes):
         return self.cross_attn.project_value_quads(memory, spatial_shapes)
 
-    def _ffn(self, x):
-        y = self.linear2(F.relu(self.linear1(x)))
-        return self.norm3(x + y)
+    def _ffn(self, x, generator):
+        y = dropout(F.relu(self.linear1(x)), self.dropout, generator)
+        y = self.linear2(y)
+        return self.norm3(x + dropout(y, self.dropout, generator))
 
-    def _post_self(self, tgt, quad_slab, spatial_shapes, query_pos,
-                   reference_points, support_k, support_v, support_mask):
-        """Support cross-attn + deformable cross-attn (against the quad
-        slab, `prequad=True` in the JAX package) + FFN."""
+    def _post_self(self, tgt, memory_value, spatial_shapes, query_pos,
+                   reference_points, support_k, support_v, support_mask,
+                   generator=None, prequad=False):
+        """Support cross-attn + deformable cross-attn + FFN (shared).
+
+        prequad=True: `memory_value` is the (B*H, S', 4*Dh) quad slab of
+        the KV-cached decode step; else the (B, S, H, Dh) projected value
+        of the teacher-forced sequence."""
+        p = self.dropout
         s2 = self.support_attn.attend(tgt, support_k, support_v,
-                                      key_padding_mask=support_mask)
-        tgt = self.norm_support(tgt + s2)
-        c2 = self.cross_attn.step_call(tgt + query_pos, reference_points,
-                                       quad_slab, spatial_shapes)
-        tgt = self.norm1(tgt + c2)
-        return self._ffn(tgt)
+                                      key_padding_mask=support_mask,
+                                      generator=generator)
+        tgt = self.norm_support(tgt + dropout(s2, p, generator))
+        if prequad:
+            c2 = self.cross_attn.step_call(tgt + query_pos, reference_points,
+                                           memory_value, spatial_shapes)
+        else:
+            c2 = self.cross_attn(tgt + query_pos, reference_points,
+                                 memory_value, spatial_shapes)
+        tgt = self.norm1(tgt + dropout(c2, p, generator))
+        return self._ffn(tgt, generator)
+
+    def forward_train(
+        self,
+        tgt: torch.Tensor,                 # (B, L, D)
+        query_pos: torch.Tensor,           # (B, L, D)
+        reference_points: torch.Tensor,    # (B, L, n_levels, 2)
+        memory: torch.Tensor,              # (B, S, D)
+        spatial_shapes: Sequence[Tuple[int, int]],
+        causal_mask: torch.Tensor,         # (L, L) additive float
+        support_features: torch.Tensor,    # (B, N, D)
+        support_mask: torch.Tensor,        # (B, N) True = ignore
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The full teacher-forced sequence under the causal mask."""
+        q = self.attn_q(tgt) + query_pos
+        k, v = self.self_attn.project_kv_pre(self.attn_k(tgt),
+                                             self.attn_v(tgt))
+        t2 = self.self_attn.attend(q, k, v, attn_mask=causal_mask,
+                                   generator=generator)
+        tgt = self.norm2(tgt + dropout(t2, self.dropout, generator))
+        sk, sv = self.support_kv(support_features)
+        return self._post_self(
+            tgt, self.cross_attn.project_value(memory), spatial_shapes,
+            query_pos, reference_points, sk, sv, support_mask, generator)
 
     def forward_step(
         self,
@@ -134,7 +173,7 @@ class DecoderLayer(nn.Module):
         tgt = self.norm2(tgt_t + t2)
         out = self._post_self(tgt, quad_slab, spatial_shapes, query_pos_t,
                               reference_points_t, support_k, support_v,
-                              support_mask)
+                              support_mask, prequad=True)
         return out, cache
 
 
@@ -142,8 +181,8 @@ class Decoder(nn.Module):
     """Token embedding + N v1 decoder layers + per-layer refinement heads."""
 
     def __init__(self, num_layers: int = 6, d_model: int = 256,
-                 d_ffn: int = 1024, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, vocab_size: int = 1940,
+                 d_ffn: int = 1024, dropout: float = 0.1, n_levels: int = 4,
+                 n_heads: int = 8, n_points: int = 4, vocab_size: int = 1940,
                  seq_len: int = 200, num_classes: int = 3,
                  pad_id: int = 1939, use_pallas: bool = False,
                  query_pos_type: str = "sine",
@@ -167,8 +206,8 @@ class Decoder(nn.Module):
             self.pos_trans = Dense(d_model, d_model)
             self.pos_trans_norm = LayerNorm(d_model)
         self.layers = nn.ModuleList([
-            DecoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
-                         use_pallas=use_pallas)
+            DecoderLayer(d_model, d_ffn, dropout, n_levels, n_heads,
+                         n_points, use_pallas=use_pallas)
             for _ in range(num_layers)])
         self.class_heads = nn.ModuleList(
             [Dense(d_model, num_classes) for _ in range(num_layers)])
@@ -228,6 +267,43 @@ class Decoder(nn.Module):
         return torch.sigmoid(offset + inverse_sigmoid(ref))
 
     # ------------------------------------------------------------------
+    def forward_train(
+        self,
+        seq_kwargs: Dict[str, torch.Tensor],
+        memory: torch.Tensor,
+        spatial_shapes,
+        support_features: torch.Tensor,
+        support_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced full-sequence decode.
+
+        Returns:
+            classes: (num_layers, B, L, num_classes)
+            refs:    (num_layers, B, L, 2), fp32
+        """
+        ids = [seq_kwargs[k].long()
+               for k in ("seq11", "seq12", "seq21", "seq22")]
+        x = self.seq_embed(*ids, seq_kwargs["delta_x1"],
+                           seq_kwargs["delta_x2"], seq_kwargs["delta_y1"],
+                           seq_kwargs["delta_y2"])
+        B, L, _ = x.shape
+        causal = torch.triu(torch.full((L, L), -1e9, dtype=torch.float32,
+                                       device=x.device), diagonal=1)
+        ref = self.anchors()[None, :L].expand(B, L, 2)
+
+        classes, refs = [], []
+        for lid, layer in enumerate(self.layers):
+            query_pos = self._query_pos(ref)
+            ref_input = ref[:, :, None, :].expand(B, L, self.n_levels, 2)
+            x = layer.forward_train(x, query_pos, ref_input, memory,
+                                    spatial_shapes, causal, support_features,
+                                    support_mask, generator)
+            ref = self._refine(lid, x, ref)
+            classes.append(self.class_heads[lid](x))
+            refs.append(ref)
+        return torch.stack(classes), torch.stack(refs)
+
     def precompute_static(self, memory, support_features, spatial_shapes):
         """Per-layer quad slabs of the projected memory, and support K/V:
         the decode-time-constant inputs, computed once per request."""

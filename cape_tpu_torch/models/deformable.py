@@ -5,22 +5,24 @@ Spatial shapes are static tuples, every image is a fixed square (all-valid
 masks, valid_ratios == 1), and `project_value` is exposed separately so the
 decode projects (and quad-packs) the encoder memory once. The sampling
 offsets are computed in fp32 on an fp32 query, and the attention softmax
-in fp32, as in the JAX package. Remat (training only) waits for the
-training slice.
+in fp32, as in the JAX package. Training passes a dropout generator down;
+`remat=True` recomputes each encoder layer in the backward
+(`torch.utils.checkpoint`) with the same dropout masks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import msda as ops_msda
-from .layers import Dense, LayerNorm, xavier_uniform_, zeros_
+from .layers import Dense, LayerNorm, dropout, xavier_uniform_, zeros_
 
 
 def _offset_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -126,9 +128,10 @@ class DeformableEncoderLayer(nn.Module):
     """MSDeformAttn self-attention + FFN (`deformable_transformer.py:155-231`)."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
-                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
-                 use_pallas: bool = False):
+                 dropout: float = 0.1, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, use_pallas: bool = False):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       use_pallas=use_pallas)
         self.norm1 = LayerNorm(d_model)
@@ -136,13 +139,16 @@ class DeformableEncoderLayer(nn.Module):
         self.linear2 = Dense(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
+    def forward(self, src, pos, reference_points, spatial_shapes,
+                generator: Optional[torch.Generator] = None):
+        p = self.dropout
         value = self.self_attn.project_value(src)
         src2 = self.self_attn(src + pos, reference_points, value,
                               spatial_shapes)
-        src = self.norm1(src + src2)
-        y = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + y)
+        src = self.norm1(src + dropout(src2, p, generator))
+        y = dropout(F.relu(self.linear1(src)), p, generator)
+        y = self.linear2(y)
+        return self.norm2(src + dropout(y, p, generator))
 
 
 def encoder_reference_points(
@@ -164,21 +170,53 @@ def encoder_reference_points(
     return np.tile(pts[:, None, :], (1, len(spatial_shapes), 1))
 
 
+def _remat(layer: nn.Module, generator: Optional[torch.Generator], *args):
+    """`layer(*args, generator)` under `torch.utils.checkpoint`, whose
+    backward recomputation replays the forward's dropout masks: it restores
+    the generator state the forward started from, then puts back the state
+    the training call has reached by then."""
+    start = None if generator is None else generator.get_state()
+    ran = []
+
+    def run(*a):
+        if not ran or generator is None:
+            ran.append(True)
+            return layer(*a, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class DeformableEncoder(nn.Module):
     def __init__(self, num_layers: int = 6, d_model: int = 256,
-                 d_ffn: int = 1024, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, use_pallas: bool = False):
+                 d_ffn: int = 1024, dropout: float = 0.1, n_levels: int = 4,
+                 n_heads: int = 8, n_points: int = 4, remat: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
-            DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads,
+            DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads,
                                    n_points, use_pallas=use_pallas)
             for _ in range(num_layers)])
 
-    def forward(self, src, pos, spatial_shapes):
+    def forward(self, src, pos, spatial_shapes,
+                generator: Optional[torch.Generator] = None):
+        """`remat` (the JAX package's `nn.remat` per layer) applies only
+        where autograd records: it trades the layers' saved activations for
+        a second forward in the backward."""
         ref = torch.as_tensor(encoder_reference_points(spatial_shapes),
                               device=src.device)[None]
         ref = ref.expand(src.shape[0], *ref.shape[1:])
+        remat = self.remat and torch.is_grad_enabled()
         out = src
         for layer in self.layers:
-            out = layer(out, pos, ref, spatial_shapes)
+            if remat:
+                out = _remat(layer, generator, out, pos, ref, spatial_shapes)
+            else:
+                out = layer(out, pos, ref, spatial_shapes, generator)
         return out

@@ -7,12 +7,15 @@ meets bf16 layers), so `Dense` and `LayerNorm` here cast the same way.
 A module's dtype is the dtype of its parameters.
 
 Initialisers draw from an explicit CPU `torch.Generator`, so a seed gives
-the same weights on the CPU and on the card.
+the same weights on the CPU and on the card. Dropout draws its masks from
+the explicit generator a training call passes down (never the global RNG);
+`generator=None` is the JAX package's `deterministic=True`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -39,6 +42,20 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape,
                          self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.weight.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity when `generator` is None or
+    the rate is 0. The mask is drawn from `generator` on `x`'s device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep <= 0.0:
+        return torch.zeros_like(x)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 # -- seeded initialisers (draw on the CPU, copy into the parameter) -------

@@ -1,18 +1,23 @@
-"""Row gather of quad rows: the port of `cape_tpu.ops.gather_mxu`.
+"""Row gather of quad rows and its backward: the port of
+`cape_tpu.ops.gather_mxu`.
 
 `quad_gather(quad, gi)` computes `out[b, i, :] = quad[b, gi[b, i], :]`,
 with zeros where `gi[b, i]` lies outside `[0, n)` (the one-hot semantics
-of the TPU kernel: an index with no hit selects nothing).
+of the TPU kernel: an index with no hit selects nothing). It is a
+`torch.autograd.Function`: the gradient to `quad` is the scatter-add
+`quad_scatter(d_out, gi, n)`, accumulated in fp32 and cast to the slab's
+dtype (`gather_mxu.py:151-152`); the indices get no gradient.
 
-- CUDA tensors: the hand-written kernel `csrc/gather.cu`, which replaces
-  the Pallas `_gather_fwd_kernel` (`cape_tpu/ops/gather_mxu.py:57`). It is
-  bound by bytes (2*B*N*C*elt + 4*B*N) and moves each row as coalesced
-  16-byte vectors; see the source for the design.
-- CPU tensors: `quad_gather_plain`, the same function in plain PyTorch.
+- CUDA tensors: the hand-written kernels `csrc/gather.cu`, which replaces
+  the Pallas `_gather_fwd_kernel` (`cape_tpu/ops/gather_mxu.py:57`), and
+  `csrc/scatter.cu`, which replaces `_scatter_bwd_kernel` (`:68`). Both
+  are bound by bytes; see the sources for the designs.
+- CPU tensors: `quad_gather_plain` and `quad_scatter_plain`, the same
+  functions in plain PyTorch.
 
-`quad_gather.launches` counts kernel launches (never plain calls), so a run
-can show that the main path went through the kernel. The backward
-(`_scatter_bwd_kernel`) waits for the training slice.
+`quad_gather.launches` and `quad_scatter.launches` count kernel launches
+(never plain calls), so a run can show that the main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import ctypes
 import torch
 
 from . import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def quad_gather_plain(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
@@ -34,48 +41,62 @@ def quad_gather_plain(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
                                                         device=quad.device))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gather")
-    fn = lib.quad_gather_launch
+def quad_scatter_plain(dg: torch.Tensor, gi: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """Plain PyTorch version: a masked `index_add_` into fp32, cast to the
+    dtype of `dg`."""
+    B, N, C = dg.shape
+    valid = (gi >= 0) & (gi < n)
+    rows = (torch.arange(B, device=gi.device)[:, None] * n + gi.long())[valid]
+    out = torch.zeros((B * n, C), dtype=torch.float32, device=dg.device)
+    out.index_add_(0, rows, dg[valid].float())
+    return out.reshape(B, n, C).to(dg.dtype)
+
+
+def _lib(name: str, fn_name: str, n_int: int) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(quad: torch.Tensor, gi: torch.Tensor) -> None:
-    if quad.dim() != 3 or gi.dim() != 2 or gi.shape[0] != quad.shape[0]:
-        raise ValueError(f"quad_gather: quad (B, n, C) and gi (B, N) "
-                         f"expected, got {tuple(quad.shape)} and "
-                         f"{tuple(gi.shape)}")
+def _check(rows: torch.Tensor, gi: torch.Tensor, what: str) -> None:
+    if rows.dim() != 3 or gi.dim() != 2 or gi.shape[0] != rows.shape[0]:
+        raise ValueError(f"{what}: rows (B, n|N, C) and gi (B, N) expected, "
+                         f"got {tuple(rows.shape)} and {tuple(gi.shape)}")
     if gi.dtype != torch.int32:
-        raise TypeError(f"quad_gather: gi must be int32, got {gi.dtype}")
-    if gi.device != quad.device:
-        raise ValueError("quad_gather: quad and gi on different devices")
+        raise TypeError(f"{what}: gi must be int32, got {gi.dtype}")
+    if gi.device != rows.device:
+        raise ValueError(f"{what}: rows and gi on different devices")
 
 
-def quad_gather(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
-    """Gather rows `gi` (B, N) int32 from `quad` (B, n, C) -> (B, N, C)."""
-    _check(quad, gi)
+def _kernel_inputs(rows: torch.Tensor, gi: torch.Tensor, what: str):
+    """Contiguous kernel operands on the current CUDA device, 16-byte rows."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {rows.device}")
+    rows, gi = rows.contiguous(), gi.contiguous()
+    row_bytes = rows.shape[2] * rows.element_size()
+    if row_bytes % 16 or rows.data_ptr() % 16:
+        raise ValueError(f"{what} kernel: rows of {row_bytes} bytes must be "
+                         "a 16-byte multiple on a 16-byte boundary")
+    if rows.device.index != torch.cuda.current_device():
+        raise ValueError("kernel inputs must be on the current CUDA device")
+    return rows, gi, row_bytes
+
+
+def _gather(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
     if quad.device.type == "cpu":
         return quad_gather_plain(quad, gi)
-    if quad.device.type != "cuda":
-        raise ValueError(f"quad_gather: unsupported device {quad.device}")
+    quad, gi, row_bytes = _kernel_inputs(quad, gi, "quad_gather")
     B, n, C = quad.shape
     N = gi.shape[1]
-    row_bytes = C * quad.element_size()
-    quad = quad.contiguous()
-    gi = gi.contiguous()
-    if row_bytes % 16 or quad.data_ptr() % 16:
-        raise ValueError(f"quad_gather kernel: rows of {row_bytes} bytes "
-                         "must be a 16-byte multiple on a 16-byte boundary")
-    if quad.device.index != torch.cuda.current_device():
-        raise ValueError("kernel inputs must be on the current CUDA device")
     out = torch.empty((B, N, C), dtype=quad.dtype, device=quad.device)
-    err = _lib().quad_gather_launch(quad.data_ptr(), gi.data_ptr(),
-                                    out.data_ptr(), B, n, N, row_bytes,
-                                    torch.cuda.current_stream().cuda_stream)
+    err = _lib("gather", "quad_gather_launch", 4).quad_gather_launch(
+        quad.data_ptr(), gi.data_ptr(), out.data_ptr(), B, n, N, row_bytes,
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"quad_gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -83,4 +104,53 @@ def quad_gather(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def quad_scatter(dg: torch.Tensor, gi: torch.Tensor, n: int) -> torch.Tensor:
+    """Scatter-add rows `dg` (B, N, C) to `gi` (B, N) int32 -> (B, n, C)
+    in the dtype of `dg`, summed in fp32; indices outside `[0, n)` add
+    nothing. Kernel on CUDA, plain version on CPU."""
+    _check(dg, gi, "quad_scatter")
+    if gi.shape[1] != dg.shape[1]:
+        raise ValueError(f"quad_scatter: dg has {dg.shape[1]} rows per "
+                         f"slab, gi {gi.shape[1]} indices")
+    if dg.device.type == "cpu":
+        return quad_scatter_plain(dg, gi, n)
+    if dg.dtype not in _DTYPE_CODE:
+        raise TypeError(f"quad_scatter kernel: dtype {dg.dtype} "
+                        "(float32 or bfloat16 only)")
+    dg, gi, row_bytes = _kernel_inputs(dg, gi, "quad_scatter")
+    B, N, C = dg.shape
+    out = torch.zeros((B, n, C), dtype=torch.float32, device=dg.device)
+    err = _lib("scatter", "quad_scatter_launch", 5).quad_scatter_launch(
+        dg.data_ptr(), gi.data_ptr(), out.data_ptr(), B, n, N, row_bytes,
+        _DTYPE_CODE[dg.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"quad_scatter kernel launch failed: CUDA error "
+                           f"{err}")
+    quad_scatter.launches += 1
+    return out.to(dg.dtype)
+
+
+class _QuadGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, quad, gi):
+        ctx.save_for_backward(gi)
+        ctx.n = quad.shape[1]
+        return _gather(quad, gi)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (gi,) = ctx.saved_tensors
+        return quad_scatter(d_out, gi, ctx.n), None
+
+
+def quad_gather(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
+    """Gather rows `gi` (B, N) int32 from `quad` (B, n, C) -> (B, N, C);
+    differentiable in `quad`."""
+    _check(quad, gi, "quad_gather")
+    return _QuadGather.apply(quad, gi)
+
+
 quad_gather.launches = 0
+quad_scatter.launches = 0

@@ -19,7 +19,12 @@ kernel on the card) followed by a weighted corner/point sum.
   L*P points with one gather per layer and step.
 - `ms_deform_attn_core_naive`: the direct 4-corner gather, the test oracle.
 - `ms_deform_attn`: `use_pallas=True` selects the whole-op kernel of
-  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`).
+  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`), whose backward
+  is the quad-row core's VJP.
+
+Every function here is differentiable in the value, the sampling locations
+and the attention weights: the gather's backward is the scatter kernel of
+`ops.gather`, and the bilinear and attention weights are plain PyTorch.
 
 The device alone picks kernel or plain version: there are no backend
 knobs (the JAX package's CAPE_MSDA_* variables are not ported).
@@ -258,13 +263,42 @@ def ms_deform_attn_core_naive(
     return out.transpose(1, 2).reshape(B, Lq, H * Dh)
 
 
+class _MSDeformAttnPallas(torch.autograd.Function):
+    """Whole-op kernel forward, quad-row core VJP backward
+    (`cape_tpu/ops/msda.py:542-557`): the backward re-runs
+    `ms_deform_attn_core` under autograd, so its gathers and their scatter
+    backwards run there."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        return ms_deform_attn_pallas(value, spatial_shapes,
+                                     sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            out = ms_deform_attn_core(inputs[0], ctx.spatial_shapes,
+                                      inputs[1], inputs[2])
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out,
+                                             allow_unused=True))
+        return tuple(next(grads) if n else None for n in need) + (None,)
+
+
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
                    attention_weights, use_pallas: bool = False):
     """Backend dispatch: `use_pallas=True` runs the whole-op kernel of
-    `ops.msda_kernel` (forward only; its autograd function waits for the
-    training slice), else the quad-row core."""
+    `ops.msda_kernel` with the quad-row core's VJP for training, else the
+    quad-row core. Both compute the same function."""
     if not use_pallas:
         return ms_deform_attn_core(
             value, spatial_shapes, sampling_locations, attention_weights)
-    return ms_deform_attn_pallas(value, spatial_shapes, sampling_locations,
-                                 attention_weights)
+    shapes = tuple(tuple(s) for s in spatial_shapes)
+    return _MSDeformAttnPallas.apply(value, sampling_locations,
+                                     attention_weights, shapes)

@@ -12,9 +12,10 @@ gather and the weighted sum over the K4 = L*P*4 corners of every
   (bh, query) with lanes over Dh; see the source for the design.
 - CPU tensors: `msda_forward_plain`, the same function in plain PyTorch.
 
-Forward only (it runs under `torch.inference_mode`): the autograd
-function, whose backward is the quad-row core's, waits for the training
-slice. `msda_forward.launches` counts kernel launches.
+This module is the forward only; `ops.msda.ms_deform_attn(use_pallas=True)`
+wraps it in an autograd function whose backward is the quad-row core's
+VJP, as the JAX package does. `msda_forward.launches` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -137,7 +138,6 @@ def prepare_corners(
             bh(v_parts, torch.float32))
 
 
-@torch.inference_mode()
 def ms_deform_attn_pallas(
     value: torch.Tensor,                    # (B, S, H, Dh)
     spatial_shapes: Sequence[Tuple[int, int]],

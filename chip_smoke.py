@@ -7,18 +7,24 @@ and exits non-zero at the first phase that fails:
 
 1. card identity (`nvidia-smi` name and power limit);
 2. each kernel against its plain PyTorch version on the card at the shapes
-   of the serving path (fp32 and bf16), with its time, its plain
-   version's time, a library call's time where one computes the same
-   function, and its bound;
+   of the serving and training paths (fp32 and bf16), with its time, its
+   plain version's time, a library call's time where one computes the
+   same function, and its bound;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
    kernels' launch counters must show the path went through them;
 4. the same weights with `use_pallas_msda=True`: one request through the
-   whole-op MSDA kernel, and its fp32 encoder memory against the default
-   model's;
-5. one image in fp32 on the card (kernels) against the CPU (plain
-   versions): encoder memory and the first decode step's logits.
+   whole-op MSDA kernel;
+5. the training path at the flagship width: `make_train_step` takes 8
+   micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
+   48 gathers and 48 scatters each; the forward/backward/optimizer split;
+   one micro-step with `use_pallas_msda=True`;
+6. fp32 on the card (kernels) against the CPU (plain versions): the
+   encoder memory of both MSDA paths, the first decode step's logits, and
+   at a reduced config the loss and every parameter's gradient on both
+   MSDA paths, a scatter that loses duplicate indices (which that check
+   must reject), and one real update.
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. Times are
@@ -185,6 +191,7 @@ def phase_kernels(torch, card):
     print(f"msda_forward [encoder, value {tuple(value_bh.shape)} bf16, "
           f"K4={K4}] {m} ({card})", flush=True)
 
+    scatter = _scatter_kernel(torch, g, card)
     enc = g_times["encoder level 0"]
     return [
         {"name": "quad_gather", "route": "cuda",
@@ -201,7 +208,73 @@ def phase_kernels(torch, card):
          "bound_ms": max(m["bytes_ms"], m["ops_ms"]),
          "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"] else "operations",
          "library_ms": None},
+        scatter,
     ]
+
+
+def _scatter_kernel(torch, g, card):
+    """quad_scatter (the gather's backward) vs its plain version at the
+    training path's shapes: 4 images x 8 heads = 32 slabs of the encoder's
+    and the decoder's level 0 (n = 4161 quad rows, C = 128)."""
+    from cape_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    BH, n, C = 32, 4161, 128
+    cases = {"encoder level 0": 5440 * 4, "decoder level 0": 200 * 4}
+    # fp32: the same terms summed in another order (atomics, run to run);
+    # bf16: that, then one rounding to bf16 (one bf16 ulp where a sum
+    # lands near a rounding boundary)
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+    err, times = 0.0, {}
+    for label, N in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dg = torch.randn(BH, N, C, generator=g, device=dev).to(dtype)
+            gi = torch.randint(0, n, (BH, N), generator=g, device=dev,
+                               dtype=torch.int32)
+            gi[:, :64] = 3                                  # duplicates
+            gi[:, 64:68] = torch.tensor([-1, -n, n, n + 7], device=dev,
+                                        dtype=torch.int32)  # out of range
+            got = gather.quad_scatter(dg, gi, n)
+            want = gather.quad_scatter_plain(dg, gi, n)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            atol, rtol = tol[dtype]
+            print(f"quad_scatter [{label}, {dtype}]: max abs err {e:.3e} "
+                  f"(tolerance {atol:g} abs + {rtol:g} rel)", flush=True)
+            check(got.dtype == dtype and got.shape == (BH, n, C),
+                  "quad_scatter: wrong dtype or shape")
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+            err = max(err, e)
+        # times in bf16 (the training path's dtype), in-range indices
+        gi = torch.randint(0, n, (BH, N), generator=g, device=dev,
+                           dtype=torch.int32)
+        idx64 = gi.long()[..., None].expand(-1, -1, C)
+        dg32 = dg.float()
+        # the function's bound: dg and gi read once, the slab written once
+        # in dg's dtype; this design's bound writes the slab in fp32 (the
+        # buffer its atomics accumulate in)
+        nbytes = (dg.numel() * dg.element_size() + gi.numel() * 4
+                  + BH * n * C * dg.element_size())
+        design_bytes = nbytes + BH * n * C * (4 - dg.element_size())
+        times[label] = {
+            "ms": cuda_ms(torch, lambda: gather.quad_scatter(dg, gi, n)),
+            "plain_ms": cuda_ms(
+                torch, lambda: gather.quad_scatter_plain(dg, gi, n)),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros(
+                BH, n, C, device=dev).scatter_add_(1, idx64, dg32)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "design_bound_ms": design_bytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"dg {tuple(dg.shape)} bf16, gi {tuple(gi.shape)}, "
+                     f"n {n}"}
+        print(f"quad_scatter [{label}] {times[label]} ({card})", flush=True)
+    enc = times["encoder level 0"]
+    return {"name": "quad_scatter", "route": "cuda",
+            "source": "cape_tpu_torch/ops/csrc/scatter.cu",
+            "replaces": "cape_tpu/ops/gather_mxu.py:68",
+            "launches": 0, "max_abs_err": err, "ms": enc["ms"],
+            "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+            "bound_by": "bytes", "library_ms": enc["library_ms"]}
 
 
 # ----------------------------------------------------------------------
@@ -232,7 +305,14 @@ def _check_results(np, results, n_images, n_kpts):
 
 def _reset_counts(gather, msda_kernel):
     gather.quad_gather.launches = 0
+    gather.quad_scatter.launches = 0
     msda_kernel.msda_forward.launches = 0
+
+
+def _counts(gather, msda_kernel):
+    return {"quad_gather": gather.quad_gather.launches,
+            "quad_scatter": gather.quad_scatter.launches,
+            "msda_forward": msda_kernel.msda_forward.launches}
 
 
 def phase_serving(torch, np, card):
@@ -302,6 +382,332 @@ def phase_serving(torch, np, card):
           "quad_gather must run once per decoder layer and step")
     del model_p, pred_p
     return model, default_counts, pallas_counts
+
+
+def _train_batch(np, cfg, rng):
+    """One seeded teacher-forced batch of batch_size episodes x
+    num_queries_per_episode query images: uint8 images, a jittered
+    17-keypoint prototype as support and targets from the port's
+    tokenizer."""
+    from cape_tpu_torch.data.tokenizer import (DiscreteTokenizer,
+                                               tokenize_keypoints)
+
+    B = cfg.batch_size * cfg.num_queries_per_episode
+    S, K, E = cfg.image_size, cfg.max_support_keypoints, cfg.max_skeleton_edges
+    tok = DiscreteTokenizer(cfg.num_bins, cfg.seq_len)
+    proto = np.asarray(PROTO_17, np.float32)
+    sc = np.zeros((B, K, 2), np.float32)
+    sm = np.ones((B, K), bool)
+    se = np.full((B, E, 2), -1, np.int32)
+    targets = []
+    for i in range(B):
+        sc[i, :17] = np.clip(proto + rng.normal(0, 0.02, proto.shape), 0, 1)
+        sm[i, :17] = False
+        se[i, :len(SKELETON_17)] = SKELETON_17
+        kpts = np.clip(proto + rng.normal(0, 0.05, proto.shape), 0, 1) * S
+        targets.append(tokenize_keypoints(tok, kpts, S, S,
+                                          rng.integers(1, 3, 17)))
+    return {"query_images": rng.integers(0, 256, (B, S, S, 3),
+                                         dtype=np.uint8),
+            "support_coords": sc, "support_mask": sm, "skeleton_edges": se,
+            "targets": {k: np.stack([t[k] for t in targets])
+                        for k in targets[0]}}
+
+
+def phase_training(torch, np, card):
+    """The flagship teacher-forced training step: 8 micro-steps = 2 real
+    AdamW updates (accumulation_steps=4) with dropout 0.1, 4 query images
+    each; then the forward/backward/optimizer split, and one micro-step on
+    the use_pallas_msda path."""
+    from cape_tpu_torch import CAPE, CAPEConfig
+    from cape_tpu_torch.ops import gather, msda_kernel
+    from cape_tpu_torch.train import create_train_state, make_train_step
+    from cape_tpu_torch.train.state import global_norm
+    from cape_tpu_torch.train.train_step import forward_losses
+
+    cfg = CAPEConfig()
+    check(cfg.bf16 and cfg.image_size == 512 and cfg.dropout == 0.1
+          and cfg.aux_loss and cfg.batch_size == 2
+          and cfg.num_queries_per_episode == 2
+          and cfg.accumulation_steps == 4 and not cfg.use_remat_encoder,
+          "flagship training defaults changed")
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(3)
+    batches = [_train_batch(np, cfg, rng) for _ in range(8)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = [p for p in model.parameters()]
+    per_step = cfg.enc_layers * cfg.num_feature_levels \
+        + cfg.dec_layers * cfg.num_feature_levels
+    launches = {"quad_gather": 0, "quad_scatter": 0, "msda_forward": 0}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, batch in enumerate(batches):
+        before_p = [t.detach().clone() for t in params]
+        before_m = [t.clone() for t in state.opt_state.masters]
+        _reset_counts(gather, msda_kernel)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts(gather, msda_kernel)
+        for k in launches:
+            launches[k] += counts[k]
+        m = {k: v.item() for k, v in metrics.items()}
+        print(f"micro-step {i + 1}: {times[-1]:.3f} ms, total "
+              f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+              f"launches {counts}", flush=True)
+        check(all(np.isfinite(v) for v in m.values()), "non-finite metrics")
+        check(m["grad_norm"] > 0, "zero gradient norm")
+        check(counts == {"quad_gather": per_step, "quad_scatter": per_step,
+                         "msda_forward": 0},
+              f"micro-step {i + 1} launched {counts}; the path needs "
+              f"{per_step} gathers and {per_step} scatters")
+        same_p = all(torch.equal(a, b) for a, b in zip(before_p, params))
+        changed_m = sum(not torch.equal(a, b) for a, b in
+                        zip(before_m, state.opt_state.masters))
+        if (i + 1) % cfg.accumulation_steps:
+            check(same_p and changed_m == 0,
+                  f"parameters changed on micro-step {i + 1}")
+        else:
+            # the bf16 weights are the fp32 masters, cast. Early in the
+            # warmup an update (~lr/2500) is below the fp32 resolution of
+            # the norm scales near 1 and below the bf16 resolution of most
+            # weights: the masters keep what bf16 cannot
+            refreshed = all(torch.equal(p, m.to(p.dtype)) for p, m in
+                            zip(params, state.opt_state.masters))
+            changed_p = sum(not torch.equal(a, b)
+                            for a, b in zip(before_p, params))
+            print(f"  real update {(i + 1) // cfg.accumulation_steps}: "
+                  f"{changed_m} of {len(params)} fp32 master tensors and "
+                  f"{changed_p} model tensors changed", flush=True)
+            check(refreshed, "bf16 weights not refreshed from the masters")
+            check(changed_m > 0.5 * len(params) and changed_p > 0,
+                  f"only {changed_m} parameter tensors changed on a real "
+                  "update")
+        del before_p, before_m
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == 8 and state.opt_state.gradient_step == 2,
+          "step counts")
+    updates = times[cfg.accumulation_steps - 1::cfg.accumulation_steps]
+    print(f"flagship training (B=4 images, 512 px, bf16, dropout 0.1, "
+          f"{n_params} parameters): ms per micro-step "
+          f"{[round(t, 3) for t in times]} (those ending an accumulation "
+          f"include the optimizer: {[round(t, 3) for t in updates]}); peak "
+          f"memory {peak} bytes ({card})", flush=True)
+
+    # -- the split: forward, backward and a real optimizer update, timed
+    # apart with a sync between them on the same batches
+    split = {"forward": [], "backward": [], "optimizer micro": [],
+             "optimizer update": []}
+    for batch in batches[:cfg.accumulation_steps]:
+        t0 = time.perf_counter()
+        losses = forward_losses(model, cfg, batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(losses["total"], params)
+        global_norm(grads)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        emitted = state.tx.update(grads, state.opt_state, params)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        split["forward"].append((t1 - t0) * 1e3)
+        split["backward"].append((t2 - t1) * 1e3)
+        split["optimizer update" if emitted else "optimizer micro"].append(
+            (t3 - t2) * 1e3)
+        del losses, grads
+    split = {k: [round(t, 3) for t in v] for k, v in split.items()}
+    print(f"training split ms: {split} ({card})", flush=True)
+    return model, launches
+
+
+def phase_training_pallas(torch, np, model, card):
+    """Flagship micro-steps with use_pallas_msda=True on the same weights,
+    each with 12 msda_forward launches (6 encoder + 6 decoder sites) and,
+    in the backward's recomputed core, 48 gathers and 48 scatters; the
+    second is timed warm. Its deterministic loss against the default
+    path's (bf16)."""
+    from cape_tpu_torch import CAPE
+    from cape_tpu_torch.ops import gather, msda_kernel
+    from cape_tpu_torch.train import create_train_state, make_train_step
+    from cape_tpu_torch.train.train_step import forward_losses
+
+    cfg = model.cfg.replace(use_pallas_msda=True)
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    model_p = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(1))
+    model_p.load_state_dict(model.state_dict())
+    state = create_train_state(cfg, model_p, spe)
+    batch = _train_batch(np, cfg, np.random.default_rng(4))
+    with torch.no_grad():
+        want = forward_losses(model, cfg, batch)["total"].item()
+        got = forward_losses(model_p, cfg, batch)["total"].item()
+    print(f"use_pallas_msda deterministic loss {got:.6f} vs default "
+          f"{want:.6f} (tolerance 2e-2 rel: bf16)", flush=True)
+    check(abs(got - want) <= 2e-2 * abs(want), "use_pallas_msda loss differs")
+    step = make_train_step(model_p, cfg, spe)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sites = cfg.enc_layers + cfg.dec_layers
+    per_step = sites * cfg.num_feature_levels
+    for i in range(2):
+        _reset_counts(gather, msda_kernel)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts(gather, msda_kernel)
+        m = {k: v.item() for k, v in metrics.items()}
+        print(f"use_pallas_msda micro-step {i + 1}: {ms:.3f} ms, total "
+              f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, launches "
+              f"{counts} ({card})", flush=True)
+        check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              "use_pallas_msda step: non-finite or zero metrics")
+        check(counts == {"quad_gather": per_step, "quad_scatter": per_step,
+                         "msda_forward": sites},
+              f"use_pallas_msda micro-step launched {counts}")
+    return counts
+
+
+def _grads(torch, model, cfg, batch):
+    """The deterministic loss and every parameter's gradient, the latter
+    copied to the CPU."""
+    from cape_tpu_torch.train.train_step import forward_losses
+
+    losses = forward_losses(model, cfg, batch)
+    g = torch.autograd.grad(losses["total"], list(model.parameters()))
+    return losses["total"].item(), [x.cpu() for x in g]
+
+
+def _grad_ratios(torch, got, want):
+    """Per tensor: max abs error over its tolerance, GRAD_RTOL of the
+    tensor's own L2 norm plus GRAD_ATOL of the global norm (the floor for
+    tensors whose gradient is near zero, where only noise is left)."""
+    from cape_tpu_torch.train.state import global_norm
+
+    norm = global_norm(want).item()
+    return [(a - b).abs().max().item()
+            / (GRAD_RTOL * torch.linalg.vector_norm(b).item()
+               + GRAD_ATOL * norm) for a, b in zip(got, want)]
+
+
+#: fp32 gradient tolerance, card against CPU (see phase_fp32_grads)
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+#: elements of one update allowed to differ by more than 1e-2 lr, card
+#: against CPU: 4 of 37,151,706 measured on an H100, with 25x headroom
+UPDATE_FAR = 100
+
+
+def phase_fp32_grads(torch, np):
+    """fp32 gradients and one real update, card (kernels) against CPU
+    (plain versions), same seeded weights and batch, TF32 off, at a config
+    small enough for the CPU (ResNet-50 at 128 px, 2+2 layers, dropout
+    0), on the default and the use_pallas_msda path. This is the check
+    that the value path gets its gradient; a scatter that loses the
+    contributions of duplicate indices must fail it."""
+    from cape_tpu_torch import CAPE, CAPEConfig
+    from cape_tpu_torch.ops import gather
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CAPEConfig().replace(image_size=128, enc_layers=2, dec_layers=2,
+                               dropout=0.0, bf16=False, batch_size=1,
+                               accumulation_steps=1, warmup_epochs=0)
+    spe = 10
+    batch = _train_batch(np, cfg, np.random.default_rng(5))
+    weights = CAPE(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(5)).state_dict()
+    models, cpu_grads = {}, {}
+    for pallas in (False, True):
+        c = cfg.replace(use_pallas_msda=pallas)
+        m_cpu = CAPE(c, device="cpu", generator=torch.Generator().manual_seed(6))
+        m_gpu = CAPE(c, device="cuda", generator=torch.Generator().manual_seed(6))
+        m_cpu.load_state_dict(weights)
+        m_gpu.load_state_dict(weights)
+        names = [n for n, _ in m_cpu.named_parameters()]
+        l_cpu, g_cpu = _grads(torch, m_cpu, c, batch)
+        l_gpu, g_gpu = _grads(torch, m_gpu, c, batch)
+        ratios = _grad_ratios(torch, g_gpu, g_cpu)
+        order = sorted(range(len(names)), key=lambda i: -ratios[i])
+        value = sum(g.abs().sum().item() for n, g in zip(names, g_gpu)
+                    if "value_proj.weight" in n)
+        label = "use_pallas_msda" if pallas else "default"
+        print(f"fp32 card vs CPU [{label}]: loss {l_gpu:.7f} vs {l_cpu:.7f}; "
+              f"gradient error over tolerance, largest: "
+              f"{[(names[i], f'{ratios[i]:.3e}') for i in order[:4]]}; "
+              f"value_proj gradient mass on the card {value:.6f} "
+              f"(tolerance per tensor {GRAD_RTOL:g} of its own L2 norm + "
+              f"{GRAD_ATOL:g} of the global norm: fp32 summation order of "
+              f"convs and matmuls, TF32 off, and the scatter's atomics)",
+              flush=True)
+        check(value > 0, f"no gradient reached value_proj on the card "
+              f"({label})")
+        check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"fp32 loss differs ({label})")
+        check(ratios[order[0]] <= 1.0,
+              f"fp32 gradient of {names[order[0]]} ({label}): "
+              f"{ratios[order[0]]:.3e} of its tolerance")
+        models[pallas], cpu_grads[pallas] = (m_cpu, m_gpu), g_cpu
+
+    # the same check against a faulty scatter: plain stores in place of
+    # atomic adds, so of the rows that share an index one wins
+    def lossy_scatter(dg, gi, n):
+        B, N, C = dg.shape
+        valid = (gi >= 0) & (gi < n)
+        rows = (torch.arange(B, device=gi.device)[:, None] * n
+                + gi.long())[valid]
+        out = torch.zeros((B * n, C), dtype=torch.float32, device=dg.device)
+        out.index_put_((rows,), dg[valid].float())
+        return out.reshape(B, n, C).to(dg.dtype)
+
+    scatter = gather.quad_scatter
+    gather.quad_scatter = lossy_scatter
+    try:
+        _, g_bad = _grads(torch, models[False][1], cfg, batch)
+    finally:
+        gather.quad_scatter = scatter
+    bad = _grad_ratios(torch, g_bad, cpu_grads[False])
+    flagged = [n for n, r in zip(names, bad) if r > 1.0]
+    value_bad = [r for n, r in zip(names, bad) if "value_proj.weight" in n]
+    print(f"fp32 card vs CPU with a scatter that loses duplicates: "
+          f"{len(flagged)} of {len(names)} tensors beyond tolerance, "
+          f"value_proj.weight at {min(value_bad):.3e}..{max(value_bad):.3e} "
+          f"of it", flush=True)
+    check(min(value_bad) > 1.0,
+          "the gradient check cannot see a scatter that loses duplicates")
+
+    # one real update on each device (default path), compared in units of
+    # the group lr
+    after = {}
+    for dev, m in zip(("cpu", "cuda"), models[False]):
+        st = create_train_state(cfg, m, spe)
+        before = [t.detach().cpu().clone() for t in st.opt_state.masters]
+        make_train_step(m, cfg, spe)(st, batch)
+        after[dev] = [(a.detach().cpu() - b) for a, b in
+                      zip(st.opt_state.masters, before)]
+    lrs = st.tx.group_lrs(0)
+    worst, n_far = 0.0, 0
+    for label, d_gpu, d_cpu in zip(st.opt_state.labels, after["cuda"],
+                                   after["cpu"]):
+        if lrs[label] == 0.0:
+            check(not d_gpu.any() and not d_cpu.any(), "a frozen leaf moved")
+            continue
+        diff = ((d_gpu - d_cpu) / lrs[label]).abs()
+        worst = max(worst, diff.max().item())
+        n_far += int((diff > 1e-2).sum())
+    total = sum(d.numel() for d in after["cpu"])
+    print(f"fp32 card vs CPU after one update: {n_far} of {total} elements "
+          f"differ by more than 1e-2 lr, the largest by {worst:.3e} lr "
+          f"(tolerance: at most {UPDATE_FAR} such elements. Adam's first "
+          f"step is g/(|g|+eps): an element whose gradient is within fp32 "
+          f"noise of zero can move by up to one lr either way)", flush=True)
+    check(n_far <= UPDATE_FAR, "fp32 update differs between card and CPU")
+
 
 
 def phase_fp32_checks(torch, np, model):
@@ -384,7 +790,11 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}", flush=True)
         kernels = phase_kernels(torch, card)
         model, default_counts, pallas_counts = phase_serving(torch, np, card)
+        train_model, train_counts = phase_training(torch, np, card)
+        phase_training_pallas(torch, np, train_model, card)
+        del train_model
         phase_fp32_checks(torch, np, model)
+        phase_fp32_grads(torch, np)
         check("jax" not in sys.modules and not any(
             k == "cape_tpu" or k.startswith("cape_tpu.") for k in sys.modules),
             "the port loaded jax or the JAX package")
@@ -394,6 +804,7 @@ def main() -> int:
     # each kernel's launches from its own path's run
     kernels[0]["launches"] = default_counts["quad_gather"]
     kernels[1]["launches"] = pallas_counts["msda_forward"]
+    kernels[2]["launches"] = train_counts["quad_scatter"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -287,16 +287,20 @@ def test_from_jax_params_rejects_bad_trees(tiny, fault):
 
 # -- package rules ---------------------------------------------------------------
 def test_port_imports_neither_jax_nor_cape_tpu():
-    """Every submodule imports with jax blocked, and no `cape_tpu.` module
-    of the JAX package gets loaded."""
+    """Every submodule imports with jax, flax and optax blocked, the
+    training subpackages `losses/` and `train/` included, and no
+    `cape_tpu.` module of the JAX package gets loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
         "import cape_tpu_torch\n"
         "for m in pkgutil.walk_packages(cape_tpu_torch.__path__, "
         "'cape_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('losses.criterion', 'train.state', 'train.train_step'):\n"
+        "    assert 'cape_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'cape_tpu' or "
         "k.startswith('cape_tpu.')]\n"
         "assert not bad, bad\n"

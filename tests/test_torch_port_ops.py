@@ -5,13 +5,17 @@ On CPU tensors the port's kernel wrappers run their plain PyTorch versions;
 they are held here against the JAX package's Pallas kernels in interpret
 mode (`quad_gather(impl="mxu")`, `ms_deform_attn_pallas(interpret=True)`)
 and against the direct 4-corner oracle. Tolerances: a gather is exact;
-the fp32 cores agree to 1e-5 (summation order only).
+the fp32 cores agree to 1e-5 (summation order only). Gradients: the plain
+scatter (the gather's backward) against `jax.vjp` through the Pallas
+`_scatter_bwd_kernel` in interpret mode, and the cores' gradients against
+`jax.grad` of the JAX cores, to 1e-5 in fp32 (summation order only).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cape_tpu.ops import gather_mxu as jax_gather
@@ -60,6 +64,88 @@ def test_quad_gather_matches_pallas_mxu(dtype):
     assert got.dtype == tq.dtype and got.shape == (B, N, C)
     np.testing.assert_array_equal(got.float().numpy(), want)
     assert not got[:, 4:8].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quad_scatter_matches_pallas_mxu_vjp(dtype):
+    """The gather's backward against the Pallas `_scatter_bwd_kernel`
+    (interpret mode), duplicate and out-of-range indices included: fp32
+    sums of the same terms in another order (1e-6), then one bf16
+    rounding (one bf16 ulp where a sum lands between two)."""
+    rng = np.random.default_rng(4)
+    B, n, C, N = 3, 37, 128, 300
+    quad = rng.normal(size=(B, n, C)).astype(np.float32)
+    gi = rng.integers(0, n, (B, N)).astype(np.int32)
+    gi[:, :40] = 5                         # many duplicates of one row
+    gi[:, 40:44] = [-1, -7, n, n + 100]    # out of range: no contribution
+    dout = rng.normal(size=(B, N, C)).astype(np.float32)
+    jq = jnp.asarray(quad, dtype)
+    jd = jnp.asarray(dout, dtype)
+    _, vjp = jax.vjp(lambda q: jax_gather.quad_gather(q, jnp.asarray(gi),
+                                                      impl="mxu"), jq)
+    want = np.asarray(vjp(jd)[0].astype(jnp.float32))
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(
+        getattr(torch, dtype)).requires_grad_(True)
+    td = torch.from_numpy(np.array(jd.astype(jnp.float32))).to(tq.dtype)
+    out = port_gather.quad_gather(tq, torch.from_numpy(gi))
+    (got,) = torch.autograd.grad(out, tq, td)
+    assert got.dtype == tq.dtype and got.shape == (B, n, C)
+    tol = 1e-6 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    direct = port_gather.quad_scatter(td, torch.from_numpy(gi), n)
+    assert torch.equal(direct, got)
+
+
+def test_quad_scatter_checks_its_inputs():
+    dg = torch.zeros(2, 5, 16)
+    with pytest.raises(TypeError):
+        port_gather.quad_scatter(dg, torch.zeros(2, 5, dtype=torch.int64), 4)
+    with pytest.raises(ValueError):
+        port_gather.quad_scatter(dg, torch.zeros(3, 5, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="indices"):   # one index per row
+        port_gather.quad_scatter(dg, torch.zeros(2, 4, dtype=torch.int32), 4)
+
+
+def _core_grads(fn, value, loc, w, cot, *extra):
+    """(value, loc, attention) gradients of <fn(...), cot> in torch."""
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (value, loc, w)]
+    out = fn(ins[0], SHAPES, ins[1], ins[2], *extra)
+    return torch.autograd.grad(out, ins, torch.from_numpy(cot))
+
+
+@pytest.mark.parametrize("lo,hi", LOC_RANGES)
+def test_core_gradients_match_jax_and_naive(lo, hi):
+    """Value, location and attention gradients of the quad-row core
+    against `jax.vjp` of the JAX `xla` core and against the naive
+    oracle's autograd; fp32, 1e-5 (summation order only)."""
+    value, loc, w = _msda_inputs(21, lo=lo, hi=hi)
+    cot = np.random.default_rng(22).normal(
+        size=(value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
+    ).astype(np.float32)
+    got = _core_grads(port_msda.ms_deform_attn_core, value, loc, w, cot)
+    _, vjp = jax.vjp(lambda v, l, a: jax_msda.ms_deform_attn_core(
+        v, SHAPES, l, a, gather_impl="xla"), value, loc, w)
+    want = vjp(jnp.asarray(cot))
+    naive = _core_grads(port_msda.ms_deform_attn_core_naive, value, loc, w,
+                        cot)
+    for g, jw, nv in zip(got, want, naive):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jw), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), nv.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("lo,hi", LOC_RANGES)
+def test_use_pallas_gradients_equal_core(lo, hi):
+    """`ms_deform_attn(use_pallas=True)`'s backward is the core's VJP."""
+    value, loc, w = _msda_inputs(23, lo=lo, hi=hi)
+    cot = np.random.default_rng(24).normal(
+        size=(value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
+    ).astype(np.float32)
+    a = _core_grads(port_msda.ms_deform_attn, value, loc, w, cot, True)
+    b = _core_grads(port_msda.ms_deform_attn, value, loc, w, cot, False)
+    for ga, gb in zip(a, b):
+        assert torch.equal(ga, gb)
 
 
 def test_quad_gather_checks_its_inputs():
@@ -146,11 +232,16 @@ def test_msda_forward_checks_its_inputs():
 
 
 def test_cpu_calls_do_not_count_as_launches():
-    before = (port_gather.quad_gather.launches,
-              port_msda_kernel.msda_forward.launches)
+    """Forward and backward on the CPU run the plain versions only."""
+    counters = (port_gather.quad_gather, port_gather.quad_scatter,
+                port_msda_kernel.msda_forward)
+    before = [f.launches for f in counters]
     value, loc, w = _msda_inputs(1)
-    port_msda.ms_deform_attn(*_t(value), SHAPES, *_t(loc, w), use_pallas=True)
-    port_msda.ms_deform_attn(*_t(value), SHAPES, *_t(loc, w))
-    assert (port_gather.quad_gather.launches,
-            port_msda_kernel.msda_forward.launches) == before
+    v = torch.from_numpy(value).requires_grad_(True)
+    for use_pallas in (True, False):
+        out = port_msda.ms_deform_attn(v, SHAPES, *_t(loc, w),
+                                       use_pallas=use_pallas)
+        out.sum().backward()
+    assert v.grad is not None and v.grad.abs().sum() > 0
+    assert [f.launches for f in counters] == before
 

@@ -95,3 +95,23 @@ def port_model(jax_cfg, params, **overrides):
     model = CAPE(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params, cfg))
     return model
+
+
+def train_batch(cfg, batch: int, seed: int = 0, n_kpts: int = 5):
+    """A seeded teacher-forced batch in the JAX train step's layout:
+    images, a support prototype and tokenized keypoint targets, numpy."""
+    from cape_tpu.data.tokenizer import DiscreteTokenizer, tokenize_keypoints
+
+    imgs, sc, sm, se = episode_inputs(cfg, batch, n_kpts, seed)
+    rng = np.random.default_rng(seed + 1000)
+    tok = DiscreteTokenizer(cfg.num_bins, cfg.seq_len)
+    S = cfg.image_size
+    tg = []
+    for _ in range(batch):
+        vis = rng.integers(0, 3, n_kpts)
+        vis[0] = 2
+        tg.append(tokenize_keypoints(tok, rng.uniform(0, S, (n_kpts, 2)),
+                                     S, S, vis))
+    targets = {k: np.stack([t[k] for t in tg]) for k in tg[0]}
+    return {"query_images": imgs, "support_coords": sc, "support_mask": sm,
+            "skeleton_edges": se, "targets": targets}
