@@ -148,11 +148,10 @@ class CAPEConfig:
     steps_per_dispatch: int = 1
 
     # ---- pallas kernels ----
-    # Legacy experimental per-row-gather MSDA kernel (ops/msda_pallas.py;
-    # not lowerable by current Mosaic). The PRODUCTION kernel switch is the
-    # CAPE_MSDA_GATHER env knob ('auto' default: one-hot MXU Pallas gather
-    # on TPU — measured 1.5x the XLA take_along_axis core on v5e — XLA
-    # elsewhere; see ops/gather_mxu.py).
+    # The whole-op MSDA forward kernel (ops/msda_kernel.py) in place of the
+    # per-level core. The core's own formulation is not a config field:
+    # the CAPE_MSDA_GATHER environment variable selects it ('auto'
+    # default: the quad-row gather; see ops/gather.default_gather_impl).
     use_pallas_msda: bool = False
 
     # ---- memory ----

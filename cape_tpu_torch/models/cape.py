@@ -238,10 +238,10 @@ class CAPE(nn.Module):
         return self.decoder.precompute_static(memory, support_features,
                                               self.spatial_shapes)
 
-    def decode_step(self, token_inputs, pos_index, quad_slabs, support_kvs,
+    def decode_step(self, token_inputs, pos_index, mem_values, support_kvs,
                     support_mask, caches):
         return self.decoder.forward_step(
-            token_inputs, pos_index, quad_slabs, self.spatial_shapes,
+            token_inputs, pos_index, mem_values, self.spatial_shapes,
             support_kvs, support_mask, caches)
 
 
@@ -292,7 +292,7 @@ def autoregressive_decode(
     memory = model.encode_image(images)
     support = model.encode_support(support_coords, support_mask,
                                    skeleton_edges)
-    quad_slabs, support_kvs = model.decode_static(memory, support)
+    mem_values, support_kvs = model.decode_static(memory, support)
     caches = model.decoder.init_caches(B, L, dev)
 
     # initial token state: BOS with deltas (0, 0) (`roomformer_v2.py:362-383`)
@@ -316,7 +316,7 @@ def autoregressive_decode(
         if not bool(unfinished.any()):
             break
         logits, ref, caches = model.decode_step(
-            state, i, quad_slabs, support_kvs, support_mask, caches)
+            state, i, mem_values, support_kvs, support_mask, caches)
         logits = logits.float()[:, 0]                      # (B, 3)
         coords = ref.float()[:, 0]                         # (B, 2)
         cls = logits.argmax(dim=-1)                        # (B,)

@@ -13,13 +13,16 @@ sigmoid(learned query_embed), both in fp32.
 Two paths share one parameter set: `forward_train`, the teacher-forced
 full sequence under an additive causal mask (training, with dropout when a
 generator is passed), and `forward_step`, one token against the KV caches
-(serving). The v2-v6 layer variants and the unpacked-value decode
-(`CAPE_DECODE_PREQUAD=0`) wait for later slices.
+(serving). With `CAPE_DECODE_PREQUAD=0` the decode keeps each layer's
+plain projected value instead of its quad slab and every step runs
+`ms_deform_attn_core`, where every MSDA formulation is selectable. The
+v2-v6 layer variants are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -91,6 +94,9 @@ class DecoderLayer(nn.Module):
     def support_kv(self, support_features):
         return self.support_attn.project_kv(support_features)
 
+    def memory_value(self, memory):
+        return self.cross_attn.project_value(memory)
+
     def memory_quads(self, memory, spatial_shapes):
         return self.cross_attn.project_value_quads(memory, spatial_shapes)
 
@@ -142,15 +148,17 @@ class DecoderLayer(nn.Module):
         tgt = self.norm2(tgt + dropout(t2, self.dropout, generator))
         sk, sv = self.support_kv(support_features)
         return self._post_self(
-            tgt, self.cross_attn.project_value(memory), spatial_shapes,
-            query_pos, reference_points, sk, sv, support_mask, generator)
+            tgt, self.memory_value(memory), spatial_shapes, query_pos,
+            reference_points, sk, sv, support_mask, generator)
 
     def forward_step(
         self,
         tgt_t: torch.Tensor,               # (B, 1, D)
         query_pos_t: torch.Tensor,         # (B, 1, D)
         reference_points_t: torch.Tensor,  # (B, 1, n_levels, 2)
-        quad_slab: torch.Tensor,           # (B*H, S', 4*Dh)
+        memory_value: torch.Tensor,        # (B*H, S', 4*Dh) quad slab, or
+        #                                    (B, S, H, Dh) plain value
+        #                                    (CAPE_DECODE_PREQUAD=0)
         spatial_shapes: Sequence[Tuple[int, int]],
         cache: LayerCache,
         pos_index: int,
@@ -171,9 +179,9 @@ class DecoderLayer(nn.Module):
         t2 = self.self_attn.attend(q, cache.k, cache.v,
                                    attn_mask=future[None])
         tgt = self.norm2(tgt_t + t2)
-        out = self._post_self(tgt, quad_slab, spatial_shapes, query_pos_t,
+        out = self._post_self(tgt, memory_value, spatial_shapes, query_pos_t,
                               reference_points_t, support_k, support_v,
-                              support_mask, prequad=True)
+                              support_mask, prequad=memory_value.ndim == 3)
         return out, cache
 
 
@@ -306,11 +314,20 @@ class Decoder(nn.Module):
 
     def precompute_static(self, memory, support_features, spatial_shapes):
         """Per-layer quad slabs of the projected memory, and support K/V:
-        the decode-time-constant inputs, computed once per request."""
-        quad_slabs = [l.memory_quads(memory, spatial_shapes)
-                      for l in self.layers]
+        the decode-time-constant inputs, computed once per request.
+
+        A quad slab holds each value row 4 times. `CAPE_DECODE_PREQUAD=0`
+        keeps the plain per-layer (B, S, H, Dh) value instead, and each
+        decode step runs `ms_deform_attn_core` on it: a quarter of the
+        cache, a repack per step on the quad-row path, and every MSDA
+        formulation selectable."""
+        if os.environ.get("CAPE_DECODE_PREQUAD", "1") == "0":
+            mem_values = [l.memory_value(memory) for l in self.layers]
+        else:
+            mem_values = [l.memory_quads(memory, spatial_shapes)
+                          for l in self.layers]
         support_kvs = [l.support_kv(support_features) for l in self.layers]
-        return quad_slabs, support_kvs
+        return mem_values, support_kvs
 
     def init_caches(self, batch: int, length: int,
                     device: torch.device) -> List[LayerCache]:
@@ -324,7 +341,8 @@ class Decoder(nn.Module):
         self,
         token_inputs: Dict[str, torch.Tensor],   # (B, 1) tensors
         pos_index: int,
-        quad_slabs: List[torch.Tensor],
+        mem_values: List[torch.Tensor],          # quad slabs, or plain
+        #                                          values (precompute_static)
         spatial_shapes,
         support_kvs,                              # list[(k, v)]
         support_mask: torch.Tensor,
@@ -352,7 +370,7 @@ class Decoder(nn.Module):
             ref_input = ref[:, :, None, :].expand(B, 1, self.n_levels, 2)
             sk, sv = support_kvs[lid]
             x, _ = layer.forward_step(
-                x, query_pos, ref_input, quad_slabs[lid], spatial_shapes,
+                x, query_pos, ref_input, mem_values[lid], spatial_shapes,
                 caches[lid], pos_index, sk, sv, support_mask)
             ref = self._refine(lid, x, ref)
         # only the last layer's class head is read at decode time

@@ -3,10 +3,11 @@
 Each source compiles with `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface, loaded with `ctypes` (no PyTorch headers,
 so a build takes seconds). Libraries go to `_build/` beside this file
-(listed in `.gitignore`), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads at once. Nothing is
-built at import: the first launch builds, or `build_all()` builds every
-kernel in parallel up front. A failed build raises with nvcc's output.
+(listed in `.gitignore`), named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
+unchanged one loads at once. Nothing is built at import: the first launch
+builds, or `build_all()` builds every kernel in parallel up front. A
+failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gather", "msda", "scatter")
+SOURCES = ("fused", "gather", "msda", "quadfused", "scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -18,17 +18,41 @@ dtype (`gather_mxu.py:151-152`); the indices get no gradient.
 `quad_gather.launches` and `quad_scatter.launches` count kernel launches
 (never plain calls), so a run can show that the main path went through the
 kernels.
+
+`default_gather_impl()` reads the process-wide MSDA formulation from
+`CAPE_MSDA_GATHER`, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def default_gather_impl() -> str:
+    """The process-wide MSDA formulation (`CAPE_MSDA_GATHER`), read at
+    every call: the counterpart of `cape_tpu/ops/gather_mxu.py:194-219`.
+
+    'fused' | 'fusedq' | 'naive' | 'flat' select those formulations of
+    `ops.msda.ms_deform_attn_core`. 'auto' (the default), 'xla' and 'mxu'
+    all mean the quad-row path: the JAX package has two row gathers there
+    (`take_along_axis` and the one-hot kernel), the port has one, and the
+    tensor's device picks its kernel or its plain version. Sites with few
+    gather rows are resolved in `ops.msda._resolve_impl_for_shape`.
+    """
+    choice = os.environ.get("CAPE_MSDA_GATHER", "auto").lower()
+    if choice in ("auto", "xla", "mxu", "fused", "fusedq", "naive", "flat"):
+        return choice
+    raise ValueError(
+        f"CAPE_MSDA_GATHER={choice!r}: expected 'xla', 'mxu', 'fused', "
+        "'fusedq', 'naive', 'flat' or 'auto'"
+    )
 
 
 def quad_gather_plain(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:

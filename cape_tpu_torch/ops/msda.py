@@ -5,42 +5,77 @@ padding_mode='zeros', align_corners=False)`: with normalized location
 `loc` in [0,1] the continuous pixel coordinate is `loc * size - 0.5`, and
 out-of-bounds corners contribute zero.
 
-The production formulation is the JAX package's quad rows: per level, the
+The default formulation is the JAX package's quad rows: per level, the
 2x2 neighbourhood of every grid cell is packed into one 4*Dh-wide row, so
 each sample is ONE row gather (`ops.gather.quad_gather`, the hand-written
 kernel on the card) followed by a weighted corner/point sum.
 
-- `ms_deform_attn_core`: the encoder and teacher-forced sites. Heads fold
-  into the gather's batch, so it gathers once per level instead of once
-  per (level, head) as the JAX package does: the same function with H x
-  fewer launches.
+- `ms_deform_attn_core`: the encoder and teacher-forced sites, and the
+  decode step under `CAPE_DECODE_PREQUAD=0`. Heads fold into the gather's
+  batch, so it gathers once per level instead of once per (level, head)
+  as the JAX package does: the same function with H x fewer launches.
+  `gather_impl` selects another formulation of the same function.
+- `ms_deform_attn_core_fused` / `_quadfused`: one kernel per level does
+  gather, blend and corner sum (`ops.msda_fused`), over the raw level
+  slab or the quad rows.
+- `ms_deform_attn_core_flat`: every corner of every level in one gather
+  against the value in its own layout; plain tensor code.
 - `precompute_quad_slab` + `ms_deform_attn_core_prequad`: the decode step,
   which packs the frozen memory once and samples every (batch, head)'s
   L*P points with one gather per layer and step.
 - `ms_deform_attn_core_naive`: the direct 4-corner gather, the test oracle.
 - `ms_deform_attn`: `use_pallas=True` selects the whole-op kernel of
   `ops.msda_kernel` (the port of `ms_deform_attn_pallas`), whose backward
-  is the quad-row core's VJP.
+  is the selected core's VJP.
 
 Every function here is differentiable in the value, the sampling locations
 and the attention weights: the gather's backward is the scatter kernel of
-`ops.gather`, and the bilinear and attention weights are plain PyTorch.
+`ops.gather`, the fused level samples' backward the kernels of
+`ops.msda_fused`, and the bilinear and attention weights are plain PyTorch.
 
-The device alone picks kernel or plain version: there are no backend
-knobs (the JAX package's CAPE_MSDA_* variables are not ported).
+The formulation is selected as in the JAX package: the `gather_impl`
+argument, else `CAPE_MSDA_GATHER` (`ops.gather.default_gather_impl`), with
+`CAPE_MSDA_TINY` consulted under 'auto' at sites of few gather rows; both
+variables are read at every call. Within a formulation the tensor's device
+alone picks the kernel (CUDA) or its plain version (CPU).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+import os
+import warnings
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .gather import quad_gather
+from .gather import default_gather_impl, quad_gather
+from .msda_fused import fused_level_sample, quadfused_level_sample
 from .msda_kernel import ms_deform_attn_pallas
 
 Shapes = Sequence[Tuple[int, int]]
+
+#: at or below this many gather rows (Lq * P) a call site counts as tiny
+#: (the decode step's Lq = 1) and 'auto' consults CAPE_MSDA_TINY
+_NAIVE_MAX_ROWS = 256
+
+#: the names that mean the quad-row path (see `default_gather_impl`)
+_QUAD_ROW_IMPLS = ("auto", "xla", "mxu")
+
+
+def _resolve_impl_for_shape(n_rows: int) -> str:
+    """Shape-aware resolution of the process default (n_rows = Lq * P),
+    the counterpart of `cape_tpu/ops/msda.py:69-88`.
+
+    A forced CAPE_MSDA_GATHER wins at every shape; only 'auto' consults
+    CAPE_MSDA_TINY, and only at tiny call sites. The JAX package's batch
+    rule (CAPE_MSDA_TINY_XLA_BATCH) switches between its two row gathers,
+    which are one in the port, so it has no counterpart here.
+    """
+    impl = default_gather_impl()
+    if impl == "auto" and n_rows <= _NAIVE_MAX_ROWS:
+        return os.environ.get("CAPE_MSDA_TINY", "").lower() or impl
+    return impl
 
 
 def _level_offsets(spatial_shapes: Shapes) -> Tuple[int, ...]:
@@ -115,6 +150,7 @@ def ms_deform_attn_core(
     spatial_shapes: Shapes,
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
+    gather_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Sample multi-level features at fractional locations and blend.
 
@@ -123,10 +159,33 @@ def ms_deform_attn_core(
         spatial_shapes: (H_l, W_l) per level.
         sampling_locations: (B, Lq, H, L, P, 2) normalized (x, y) in [0,1].
         attention_weights: (B, Lq, H, L, P) softmax weights over L*P.
+        gather_impl: 'auto' | 'xla' | 'mxu' for the quad-row path,
+            'fused' / 'fusedq' for the single-kernel formulations, 'naive'
+            for the direct 4-corner gather, 'flat' for the single-gather
+            form, 'zero' for the measurement-only ablation that returns
+            zeros. None = the CAPE_MSDA_GATHER process default, with
+            CAPE_MSDA_TINY consulted at or below `_NAIVE_MAX_ROWS` gather
+            rows (the decode step).
 
     Returns:
         (B, Lq, H * Dh) attended features.
     """
+    if gather_impl is None:
+        gather_impl = _resolve_impl_for_shape(
+            sampling_locations.shape[1] * sampling_locations.shape[4])
+    if gather_impl == "zero":
+        # measurement-only ablation, see ms_deform_attn_core_prequad
+        return value.new_zeros((value.shape[0], sampling_locations.shape[1],
+                                value.shape[2] * value.shape[3]))
+    whole_core = {"naive": ms_deform_attn_core_naive,
+                  "flat": ms_deform_attn_core_flat,
+                  "fused": ms_deform_attn_core_fused,
+                  "fusedq": ms_deform_attn_core_quadfused}.get(gather_impl)
+    if whole_core is not None:
+        return whole_core(value, spatial_shapes, sampling_locations,
+                          attention_weights)
+    if gather_impl not in _QUAD_ROW_IMPLS:
+        raise ValueError(f"unknown gather impl {gather_impl!r}")
     B, S, H, Dh = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     if L != len(spatial_shapes):
@@ -146,6 +205,92 @@ def ms_deform_attn_core(
         lvl_out = (g * w).sum(dim=2)                     # (B*H, Lq, Dh)
         out = lvl_out if out is None else out + lvl_out
     return out.reshape(B, H, Lq, Dh).transpose(1, 2).reshape(B, Lq, H * Dh)
+
+
+def _level_sample_core(value, spatial_shapes, sampling_locations,
+                       attention_weights, quad: bool) -> torch.Tensor:
+    """The two single-kernel formulations: per level one
+    `fused_level_sample` over the raw slab or one `quadfused_level_sample`
+    over its quad rows; the sums over levels and points stay outside the
+    kernels, as in the JAX package."""
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError("levels mismatch")
+
+    offs = _level_offsets(spatial_shapes)
+    # heads fold into the kernel batch once, up front
+    vt = value.transpose(1, 2).reshape(B * H, S, Dh)
+    acc = None
+    for lvl, base, w4 in _quad_bases_and_weights(
+            spatial_shapes, sampling_locations, attention_weights,
+            value.dtype):
+        Hl, Wl = spatial_shapes[lvl]
+        slab = vt[:, offs[lvl]:offs[lvl] + Hl * Wl]
+        gi = base.transpose(1, 2).reshape(B * H, Lq * P)
+        w = w4.transpose(1, 2).reshape(B * H, Lq * P, 4)
+        if quad:
+            lvl_out = quadfused_level_sample(_quad_rows(slab, Wl), gi, w)
+        else:
+            # strip the quad-row front pad: the raw top-left corner index
+            lvl_out = fused_level_sample(slab, gi - (Wl + 1), w, Wl)
+        acc = lvl_out if acc is None else acc + lvl_out
+    out = acc.reshape(B, H, Lq, P, Dh).sum(dim=3)
+    return out.transpose(1, 2).reshape(B, Lq, H * Dh)
+
+
+def ms_deform_attn_core_fused(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Single-kernel formulation over the RAW level slabs
+    (`gather_impl='fused'`): same function as `ms_deform_attn_core`, with
+    no quad-row packing and no gathered rows in device memory."""
+    return _level_sample_core(value, spatial_shapes, sampling_locations,
+                              attention_weights, quad=False)
+
+
+def ms_deform_attn_core_quadfused(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Quad-row formulation with gather, blend and corner sum in one
+    kernel (`gather_impl='fusedq'`): the packing stays in PyTorch, the
+    gathered rows never reach device memory."""
+    return _level_sample_core(value, spatial_shapes, sampling_locations,
+                              attention_weights, quad=True)
+
+
+def ms_deform_attn_core_flat(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Single-gather formulation for tiny query counts (`gather_impl=
+    'flat'`): every (level, corner) index is made global into the
+    flattened S dimension and all L*4*P samples of a query ride one
+    `torch.gather` and one weighted sum against `value` in its own
+    (B, S, H, Dh) layout. Plain tensor code on every device."""
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError("levels mismatch")
+
+    idxs, ws = zip(*_corner_indices_and_weights(     # each (B, Lq, H, P)
+        spatial_shapes, sampling_locations, attention_weights, value.dtype))
+    K = 4 * L * P
+    # (B, Lq, H, 4L, P) -> (B, Lq*4L*P, H): a per-head index on axis 1
+    idx = torch.stack(idxs, dim=3).permute(0, 1, 3, 4, 2).reshape(
+        B, Lq * K, H)
+    w = torch.stack(ws, dim=3).permute(0, 1, 3, 4, 2).reshape(B, Lq * K, H)
+    g = torch.gather(value, 1, idx[..., None].expand(-1, -1, -1, Dh))
+    out = (g * w[..., None]).reshape(B, Lq, K, H, Dh).sum(dim=2)
+    return out.reshape(B, Lq, H * Dh)
 
 
 def quad_level_offsets(spatial_shapes: Shapes) -> Tuple[int, ...]:
@@ -182,6 +327,7 @@ def ms_deform_attn_core_prequad(
     spatial_shapes: Shapes,
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
+    gather_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Decode-step core against a precomputed quad slab.
 
@@ -193,12 +339,32 @@ def ms_deform_attn_core_prequad(
         quad_slab: (B*H, S', 4*Dh) from `precompute_quad_slab`.
         sampling_locations: (B, Lq, H, L, P, 2); attention_weights
             (B, Lq, H, L, P) as in `ms_deform_attn_core`.
+        gather_impl: None = the process default. A prequad site is a pure
+            row gather from the packed slab, so only the quad-row names
+            apply ('zero' returns zeros, measurement only); any other
+            selection warns and uses the quad gather.
     """
     BH, _, C = quad_slab.shape
     Dh = C // 4
     B, Lq, H, L, P, _ = sampling_locations.shape
     if BH != B * H or L != len(spatial_shapes):
         raise ValueError("quad slab does not match the sampling shapes")
+    if gather_impl is None:
+        gather_impl = _resolve_impl_for_shape(Lq * L * P)
+    if gather_impl == "zero":
+        # measurement-only ablation (CAPE_MSDA_TINY=zero): no gather and no
+        # blend, so a probe can price the cross-attention's share of the
+        # decode step. NOT a numerically valid decode.
+        return quad_slab.new_zeros((B, Lq, H * Dh))
+    if gather_impl not in _QUAD_ROW_IMPLS:
+        # 'naive', 'flat', 'fused' and 'fusedq' are whole-core formulations
+        # that need the unpacked (B, S, H, Dh) value; say so instead of
+        # silently measuring the quad gather
+        warnings.warn(
+            f"CAPE_MSDA gather impl {gather_impl!r} is not available at "
+            "prequad decode sites (only the quad-row gather); using it. "
+            "Set CAPE_DECODE_PREQUAD=0 to run other formulations in the "
+            "decode step.", stacklevel=2)
 
     qoffs = quad_level_offsets(spatial_shapes)
     bases, weights = [], []
@@ -216,6 +382,40 @@ def ms_deform_attn_core_prequad(
     return out.reshape(B, H, Lq, Dh).transpose(1, 2).reshape(B, Lq, H * Dh)
 
 
+def _corner_indices_and_weights(
+        spatial_shapes: Shapes, sampling_locations: torch.Tensor,
+        attention_weights: torch.Tensor,
+        dtype: torch.dtype) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per (level, bilinear corner), in that order: the clipped row index
+    into the flattened S dimension, (B, Lq, H, P) int64, and the bilinear
+    * attention weight, zeroed where the unclipped corner is out of
+    bounds."""
+    level_start = 0
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl]
+        w_attn = attention_weights[:, :, :, lvl]
+        x = loc[..., 0] * Wl - 0.5
+        y = loc[..., 1] * Hl - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0).to(dtype)
+        fy = (y - y0).to(dtype)
+        x0i = x0.to(torch.int64)
+        y0i = y0.to(torch.int64)
+        for dxi, dyi, wgt in (
+            (0, 0, (1 - fx) * (1 - fy)),
+            (1, 0, fx * (1 - fy)),
+            (0, 1, (1 - fx) * fy),
+            (1, 1, fx * fy),
+        ):
+            cx = x0i + dxi
+            cy = y0i + dyi
+            valid = (cx >= 0) & (cx < Wl) & (cy >= 0) & (cy < Hl)
+            idx = level_start + cy.clamp(0, Hl - 1) * Wl + cx.clamp(0, Wl - 1)
+            yield idx, (wgt * valid.to(dtype) * w_attn).to(dtype)
+        level_start += Hl * Wl
+
+
 def ms_deform_attn_core_naive(
     value: torch.Tensor,
     spatial_shapes: Shapes,
@@ -231,43 +431,22 @@ def ms_deform_attn_core_naive(
 
     value_bh = value.transpose(1, 2)                       # (B, H, S, Dh)
     out = torch.zeros((B, H, Lq, Dh), dtype=value.dtype, device=value.device)
-    level_start = 0
-    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
-        loc = sampling_locations[:, :, :, lvl]
-        w_attn = attention_weights[:, :, :, lvl]
-        x = loc[..., 0] * Wl - 0.5
-        y = loc[..., 1] * Hl - 0.5
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = (x - x0).to(value.dtype)
-        fy = (y - y0).to(value.dtype)
-        x0i = x0.to(torch.int64)
-        y0i = y0.to(torch.int64)
-        for dxi, dyi, wgt in (
-            (0, 0, (1 - fx) * (1 - fy)),
-            (1, 0, fx * (1 - fy)),
-            (0, 1, (1 - fx) * fy),
-            (1, 1, fx * fy),
-        ):
-            cx = x0i + dxi
-            cy = y0i + dyi
-            valid = (cx >= 0) & (cx < Wl) & (cy >= 0) & (cy < Hl)
-            idx = level_start + cy.clamp(0, Hl - 1) * Wl + cx.clamp(0, Wl - 1)
-            w = (wgt * valid.to(value.dtype) * w_attn).to(value.dtype)
-            idx_bh = idx.transpose(1, 2).reshape(B, H, Lq * P, 1)
-            gathered = torch.gather(value_bh, 2, idx_bh.expand(-1, -1, -1, Dh))
-            w_bh = w.transpose(1, 2).reshape(B, H, Lq * P, 1)
-            out = out + (gathered * w_bh).reshape(B, H, Lq, P, Dh).sum(dim=3)
-        level_start += Hl * Wl
-
+    for idx, w in _corner_indices_and_weights(
+            spatial_shapes, sampling_locations, attention_weights,
+            value.dtype):
+        idx_bh = idx.transpose(1, 2).reshape(B, H, Lq * P, 1)
+        gathered = torch.gather(value_bh, 2, idx_bh.expand(-1, -1, -1, Dh))
+        w_bh = w.transpose(1, 2).reshape(B, H, Lq * P, 1)
+        out = out + (gathered * w_bh).reshape(B, H, Lq, P, Dh).sum(dim=3)
     return out.transpose(1, 2).reshape(B, Lq, H * Dh)
 
 
 class _MSDeformAttnPallas(torch.autograd.Function):
-    """Whole-op kernel forward, quad-row core VJP backward
+    """Whole-op kernel forward, core VJP backward
     (`cape_tpu/ops/msda.py:542-557`): the backward re-runs
-    `ms_deform_attn_core` under autograd, so its gathers and their scatter
-    backwards run there."""
+    `ms_deform_attn_core` under autograd, in the formulation the process
+    default selects, so that formulation's forward and backward kernels
+    run there."""
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights,
@@ -294,8 +473,9 @@ class _MSDeformAttnPallas(torch.autograd.Function):
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
                    attention_weights, use_pallas: bool = False):
     """Backend dispatch: `use_pallas=True` runs the whole-op kernel of
-    `ops.msda_kernel` with the quad-row core's VJP for training, else the
-    quad-row core. Both compute the same function."""
+    `ops.msda_kernel` with the core's VJP for training, else
+    `ms_deform_attn_core` in the formulation the process default selects.
+    All compute the same function."""
     if not use_pallas:
         return ms_deform_attn_core(
             value, spatial_shapes, sampling_locations, attention_weights)

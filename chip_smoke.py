@@ -6,25 +6,33 @@ card, builds the hand-written CUDA kernels from `cape_tpu_torch/ops/csrc`,
 and exits non-zero at the first phase that fails:
 
 1. card identity (`nvidia-smi` name and power limit);
-2. each kernel against its plain PyTorch version on the card at the shapes
-   of the serving and training paths (fp32 and bf16), with its time, its
-   plain version's time, a library call's time where one computes the
-   same function, and its bound;
+2. each of the seven kernels against its plain PyTorch version on the
+   card at the shapes of the serving and training paths (fp32 and bf16),
+   with its time, its plain version's time, a library call's time where
+   one computes the same function, and its bound;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
    kernels' launch counters must show the path went through them;
 4. the same weights with `use_pallas_msda=True`: one request through the
    whole-op MSDA kernel;
-5. the training path at the flagship width: `make_train_step` takes 8
+5. the same weights under `CAPE_MSDA_GATHER=fused` and `fusedq` with
+   `CAPE_DECODE_PREQUAD=0`: one request each, every MSDA site of the
+   encoder and of the decode steps through the fused kernels and none
+   through `quad_gather`; and one `fused` request with the prepacked
+   decode, whose steps fall back to `quad_gather` with a warning;
+6. the training path at the flagship width: `make_train_step` takes 8
    micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
    48 gathers and 48 scatters each; the forward/backward/optimizer split;
-   one micro-step with `use_pallas_msda=True`;
-6. fp32 on the card (kernels) against the CPU (plain versions): the
-   encoder memory of both MSDA paths, the first decode step's logits, and
-   at a reduced config the loss and every parameter's gradient on both
-   MSDA paths, a scatter that loses duplicate indices (which that check
-   must reject), and one real update.
+   two micro-steps with `use_pallas_msda=True`; two each under `fused`
+   and `fusedq` (48 forward and 48 backward launches of the fused
+   kernels, no gather and no scatter);
+7. fp32 on the card (kernels) against the CPU (plain versions): the
+   encoder memory of every MSDA path, the first decode step's logits, and
+   at a reduced config the loss and every parameter's gradient on the
+   default, `use_pallas_msda`, `fused` and `fusedq` paths, a scatter that
+   loses duplicate indices (which that check must reject), and one real
+   update.
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. Times are
@@ -34,13 +42,24 @@ CUDA-event means after a warm-up; bounds use the H100 SXM peaks (3.35 TB/s,
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+
+#: level-sample cases of the fused kernels at the flagship width, as
+#: (Hl, Wl, N): N = Lq * P rows per slab, 5440 queries x 4 points in the
+#: encoder, 200 x 4 in the teacher-forced decoder, 1 x 4 in a decode step
+SAMPLE_CASES = {"encoder level 0": (64, 64, 21760),
+                "encoder level 3": (8, 8, 21760),
+                "decoder level 0": (64, 64, 800),
+                "decode step level 0": (64, 64, 4)}
 
 # COCO-style 17-keypoint prototype and skeleton (0-indexed)
 PROTO_17 = [
@@ -99,6 +118,54 @@ def gather_bytes(torch, table, idx):
     distinct = torch.unique(rows).numel()
     return (distinct * C * table.element_size() + idx.numel() * 4
             + flat.numel() * C * table.element_size())
+
+
+@contextlib.contextmanager
+def selection(**env):
+    """Set the port's CAPE_* variables for a block (None removes one)."""
+    def put(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        put(env)
+        yield
+    finally:
+        put(old)
+
+
+def _kernel_counters():
+    """name in the kernels line -> (wrapper, its counter attribute)."""
+    from cape_tpu_torch.ops import gather, msda_fused, msda_kernel
+
+    return {"quad_gather": (gather.quad_gather, "launches"),
+            "quad_scatter": (gather.quad_scatter, "launches"),
+            "msda_forward": (msda_kernel.msda_forward, "launches"),
+            "fused_fwd": (msda_fused.fused_level_sample, "launches"),
+            "fused_bwd": (msda_fused.fused_level_sample, "bwd_launches"),
+            "quadfused_fwd": (msda_fused.quadfused_level_sample, "launches"),
+            "quadfused_bwd": (msda_fused.quadfused_level_sample,
+                              "bwd_launches")}
+
+
+def _reset_counts():
+    for fn, attr in _kernel_counters().values():
+        setattr(fn, attr, 0)
+
+
+def _counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in
+            _kernel_counters().items()}
+
+
+def _check_counts(counts, what, **want):
+    """Exactly `want` launches of the kernels named, none of any other."""
+    full = dict.fromkeys(counts, 0) | want
+    check(counts == full, f"{what} launched {counts}; the path needs {full}")
 
 
 # ----------------------------------------------------------------------
@@ -192,6 +259,7 @@ def phase_kernels(torch, card):
           f"K4={K4}] {m} ({card})", flush=True)
 
     scatter = _scatter_kernel(torch, g, card)
+    fused = _fused_kernels(torch, g, card)
     enc = g_times["encoder level 0"]
     return [
         {"name": "quad_gather", "route": "cuda",
@@ -209,7 +277,7 @@ def phase_kernels(torch, card):
          "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"] else "operations",
          "library_ms": None},
         scatter,
-    ]
+    ] + fused
 
 
 def _scatter_kernel(torch, g, card):
@@ -277,6 +345,186 @@ def _scatter_kernel(torch, g, card):
             "bound_by": "bytes", "library_ms": enc["library_ms"]}
 
 
+def _sample_inputs(torch, g, BH, Hl, Wl, N, Dh, dtype, quad, awkward):
+    """(slab, gi, w4, dout) of one level sample on the card. The raw slab
+    is a level slice of a longer (BH, S, Dh) value (rows contiguous, batch
+    stride longer than the slab), as the fused core hands it over; the
+    quad slab is contiguous. `gi` covers what the path can produce: the
+    raw top-left corner from -(Wl+1) on, or a quad row of [0, n). With
+    `awkward` it also holds indices far below 0 and past the end (with
+    non-zero weights), duplicates and row-edge cells, and zero weights."""
+    dev = torch.device("cuda")
+    HW = Hl * Wl
+    if quad:
+        rows, lo = (Wl + 1) + HW, 0
+        slab = torch.randn(BH, rows, 4 * Dh, generator=g, device=dev
+                           ).to(dtype)
+    else:
+        rows, lo = HW, -(Wl + 1)
+        value = torch.randn(BH, HW + 1344, Dh, generator=g, device=dev
+                            ).to(dtype)
+        slab = value[:, 320:320 + HW]
+    gi = torch.randint(lo, rows, (BH, N), generator=g, device=dev,
+                       dtype=torch.int32)
+    w4 = torch.rand(BH, N, 4, generator=g, device=dev).to(dtype)
+    dout = torch.randn(BH, N, Dh, generator=g, device=dev).to(dtype)
+    if awkward:
+        special = [3, -1, rows + 7, 3, lo - 3, rows, -10 * rows, Wl - 1,
+                   2 * Wl - 1, rows - 1]
+        k = min(N, len(special))
+        gi[:, :k] = torch.tensor(special[:k], device=dev, dtype=torch.int32)
+        w4[:, 0, 1:3] = 0
+        if N >= 96:
+            gi[:, 16:80] = 5                    # 64 rows onto one index
+            w4[:, 80:96] = 0                    # zero weights, in range
+    return slab, gi, w4, dout
+
+
+def _sample_bound_ms(torch, slab, gi, w4, Wl, backward):
+    """The least time for one level sample on these inputs: the slab rows
+    that the corners select, gi and w4 read once and the output written
+    once (backward: dout read as well, dslab in the slab's dtype and dw4
+    written), against the fp32 multiply-adds of the blend."""
+    BH, rows, width = slab.shape
+    N = gi.shape[1]
+    Dh = width if Wl is not None else width // 4
+    elt = slab.element_size()
+    idx = gi.long()[..., None]
+    if Wl is not None:
+        idx = idx + torch.tensor([0, 1, Wl, Wl + 1], device=gi.device)
+    flat = (torch.arange(BH, device=gi.device)[:, None, None] * rows + idx)[
+        (idx >= 0) & (idx < rows)]
+    # rows read, gi, w4, and one (BH, N, Dh) array: out written, or dout read
+    nbytes = (torch.unique(flat).numel() * width * elt + gi.numel() * 4
+              + w4.numel() * elt + BH * N * Dh * elt)
+    flops = 2 * BH * N * 4 * Dh
+    if backward:
+        nbytes += slab.numel() * elt + w4.numel() * elt     # dslab, dw4
+        flops *= 2
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def _fused_kernels(torch, g, card):
+    """The four fused level-sample kernels (fused.cu, quadfused.cu) against
+    their plain versions, forward and backward, fp32 and bf16, at encoder
+    level 0, at the smallest level (the most rows per slab row), at the
+    teacher-forced decoder's and the decode step's row counts; then their
+    times at encoder level 0 (the kernels line), at the smallest level and
+    at the decoder shape."""
+    from cape_tpu_torch.ops import msda_fused as mf
+
+    Dh, cases = 32, SAMPLE_CASES
+    # fp32: the same terms in another order (fused multiply-adds; atomics
+    # whose order varies). A dslab row at level 3 sums ~1,400 terms of
+    # size ~1, so its partial sums near 30 each carry ~2e-6: hence the
+    # larger absolute term there. bf16: that, then one rounding of the
+    # result (one bf16 ulp where a sum lands near a boundary).
+    tols = {torch.float32: {"out": (1e-5, 1e-5), "dw4": (1e-5, 1e-5),
+                            "dslab": (5e-4, 1e-5)},
+            torch.bfloat16: {"out": (1e-5, 2 ** -7), "dw4": (1e-5, 2 ** -7),
+                             "dslab": (5e-4, 2 ** -7)}}
+    errs = {}
+    for quad in (False, True):
+        kind = "quadfused" if quad else "fused"
+        fwd = mf.quadfused_level_sample if quad else mf.fused_level_sample
+        errs[kind] = {(key, dt): 0.0 for key in ("fwd", "bwd")
+                      for dt in tols}
+        for label, (Hl, Wl, N) in cases.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                slab, gi, w4, dout = _sample_inputs(
+                    torch, g, 64, Hl, Wl, N, Dh, dtype, quad, awkward=True)
+                lvl = () if quad else (Wl,)
+                s_g, w_g = slab.detach().requires_grad_(True), \
+                    w4.detach().requires_grad_(True)
+                out = fwd(s_g, gi, w_g, *lvl)
+                dslab, dw4 = torch.autograd.grad(out, (s_g, w_g), dout)
+                if quad:
+                    want = mf.quadfused_level_sample_plain(slab, gi, w4)
+                    want_b = mf.quadfused_level_sample_bwd_plain(
+                        slab, gi, w4, dout)
+                else:
+                    want = mf.fused_level_sample_plain(slab, gi, w4, Wl)
+                    want_b = mf.fused_level_sample_bwd_plain(
+                        slab, gi, w4, Wl, dout)
+                    same = fwd(slab.contiguous(), gi, w4, Wl)
+                    check(torch.equal(same, out),
+                          "fused_fwd: a strided slab and its copy differ")
+                torch.cuda.synchronize()
+                check(not out[:, 2].any() and not dw4[:, 2].any(),
+                      f"{kind}: an off-range row is not zero ({label})")
+                for name, got, ref in (("out", out, want),
+                                       ("dslab", dslab, want_b[0]),
+                                       ("dw4", dw4, want_b[1])):
+                    check(got.dtype == dtype and got.shape == ref.shape,
+                          f"{kind} {name}: wrong dtype or shape")
+                    e = (got.float() - ref.float()).abs().max().item()
+                    atol, rtol = tols[dtype][name]
+                    print(f"{kind} {name} [{label}, {dtype}]: max abs err "
+                          f"{e:.3e} (tolerance {atol:g} abs + {rtol:g} rel)",
+                          flush=True)
+                    torch.testing.assert_close(got.float(), ref.float(),
+                                               atol=atol, rtol=rtol)
+                    key = ("fwd" if name == "out" else "bwd", dtype)
+                    errs[kind][key] = max(errs[kind][key], e)
+                del out, dslab, dw4, want, want_b, s_g, w_g
+
+    # times in bf16 with the path's own index range: the forward at the
+    # serving batch (64 slabs) for the encoder and the training batch (32)
+    # for the teacher-forced decoder, the backward at the training batch
+    entries = []
+    for quad in (False, True):
+        kind = "quadfused" if quad else "fused"
+        times = {"fwd": {}, "bwd": {}}
+        for label, BH_f in (("encoder level 0", 64), ("encoder level 3", 64),
+                            ("decoder level 0", 32)):
+            Hl, Wl, N = cases[label]
+            for key, BH in (("fwd", BH_f), ("bwd", 32)):
+                slab, gi, w4, dout = _sample_inputs(
+                    torch, g, BH, Hl, Wl, N, Dh, torch.bfloat16, quad,
+                    awkward=False)
+                lvl = () if quad else (Wl,)
+                if key == "fwd":
+                    k_fn = mf.quadfused_level_sample if quad \
+                        else mf.fused_level_sample
+                    p_fn = mf.quadfused_level_sample_plain if quad \
+                        else mf.fused_level_sample_plain
+                    args = (slab, gi, w4, *lvl)
+                else:
+                    k_fn = mf.quadfused_level_sample_bwd if quad \
+                        else mf.fused_level_sample_bwd
+                    p_fn = mf.quadfused_level_sample_bwd_plain if quad \
+                        else mf.fused_level_sample_bwd_plain
+                    args = (slab, gi, w4, *lvl, dout)
+                b_ms, o_ms = _sample_bound_ms(
+                    torch, slab, gi, w4, None if quad else Wl, key == "bwd")
+                with torch.no_grad():
+                    times[key][label] = {
+                        "ms": cuda_ms(torch, lambda: k_fn(*args)),
+                        "plain_ms": cuda_ms(torch, lambda: p_fn(*args),
+                                            iters=5, warmup=1),
+                        "bytes_ms": b_ms, "ops_ms": o_ms,
+                        "shape": f"slab {tuple(slab.shape)} bf16, gi "
+                                 f"{tuple(gi.shape)}"}
+                print(f"{kind}_{key} [{label}] {times[key][label]} ({card})",
+                      flush=True)
+        line = {"fused": (88, 99), "quadfused": (231, 249)}[kind]
+        for key, at in zip(("fwd", "bwd"), line):
+            t = times[key]["encoder level 0"]
+            e32, e16 = (errs[kind][key, dt] for dt in tols)
+            print(f"{kind}_{key}: largest error against plain over the "
+                  f"cases above, fp32 {e32:.3e}, bf16 {e16:.3e}", flush=True)
+            entries.append({
+                "name": f"{kind}_{key}", "route": "cuda",
+                "source": f"cape_tpu_torch/ops/csrc/{kind}.cu",
+                "replaces": f"cape_tpu/ops/msda_fused.py:{at}",
+                "launches": 0, "max_abs_err": max(e32, e16),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+                "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                else "operations", "library_ms": None})
+    return entries
+
+
 # ----------------------------------------------------------------------
 def _requests(np, n_requests, batch):
     """Seeded uint8 images of varying sizes; every other one with a bbox."""
@@ -303,23 +551,10 @@ def _check_results(np, results, n_images, n_kpts):
         check(r["generated"].shape == (n_kpts,), "generated shape")
 
 
-def _reset_counts(gather, msda_kernel):
-    gather.quad_gather.launches = 0
-    gather.quad_scatter.launches = 0
-    msda_kernel.msda_forward.launches = 0
-
-
-def _counts(gather, msda_kernel):
-    return {"quad_gather": gather.quad_gather.launches,
-            "quad_scatter": gather.quad_scatter.launches,
-            "msda_forward": msda_kernel.msda_forward.launches}
-
-
 def phase_serving(torch, np, card):
     """The flagship serving path: 3 requests of 8 images, default config;
     then one request with use_pallas_msda=True on the same weights."""
     from cape_tpu_torch import CAPE, CAPEConfig, CAPEPredictor
-    from cape_tpu_torch.ops import gather, msda_kernel
 
     cfg = CAPEConfig()
     check(cfg.bf16 and cfg.image_size == 512 and cfg.seq_len == 200,
@@ -335,7 +570,7 @@ def phase_serving(torch, np, card):
     kw = dict(skeleton=SKELETON_17)
     proto = np.asarray(PROTO_17, np.float32)
 
-    _reset_counts(gather, msda_kernel)
+    _reset_counts()
     times, steps = [], []
     for imgs, boxes in reqs:
         t0 = time.perf_counter()
@@ -344,17 +579,13 @@ def phase_serving(torch, np, card):
         times.append((time.perf_counter() - t0) * 1e3)
         _check_results(np, res, len(imgs), len(PROTO_17))
         steps.append(max(r["length"] for r in res))
-    default_counts = {"quad_gather": gather.quad_gather.launches,
-                      "msda_forward": msda_kernel.msda_forward.launches}
+    default_counts = _counts()
+    default_res = res
     L = cfg.num_feature_levels
     want = sum(cfg.enc_layers * L + cfg.dec_layers * s for s in steps)
     print(f"default path: {default_counts} launches over 3 requests, "
           f"decode steps {steps}", flush=True)
-    check(default_counts["quad_gather"] == want,
-          f"quad_gather launched {default_counts['quad_gather']} times, "
-          f"the path needs {want}")
-    check(default_counts["msda_forward"] == 0,
-          "msda_forward launched on the default path")
+    _check_counts(default_counts, "the default path", quad_gather=want)
     print(f"predict ms/request (batch 8, 512 px, bf16): "
           f"{[round(t, 3) for t in times]} ({card})", flush=True)
 
@@ -365,23 +596,72 @@ def phase_serving(torch, np, card):
     model_p.load_state_dict(model.state_dict())
     pred_p = CAPEPredictor(cfg_p, model_p, batch_size=8)
     imgs, boxes = reqs[0]
-    _reset_counts(gather, msda_kernel)
+    _reset_counts()
     t0 = time.perf_counter()
     res = pred_p.predict(imgs, proto, bboxes=boxes, **kw)
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
     _check_results(np, res, len(imgs), len(PROTO_17))
     s = max(r["length"] for r in res)
-    pallas_counts = {"quad_gather": gather.quad_gather.launches,
-                     "msda_forward": msda_kernel.msda_forward.launches}
+    pallas_counts = _counts()
     print(f"use_pallas_msda path: {pallas_counts} launches over 1 request, "
           f"decode steps {s}, {ms_p:.3f} ms ({card})", flush=True)
-    check(pallas_counts["msda_forward"] == cfg.enc_layers,
-          "msda_forward must run once per encoder layer")
-    check(pallas_counts["quad_gather"] == cfg.dec_layers * s,
-          "quad_gather must run once per decoder layer and step")
+    _check_counts(pallas_counts, "the use_pallas_msda path",
+                  msda_forward=cfg.enc_layers, quad_gather=cfg.dec_layers * s)
     del model_p, pred_p
-    return model, default_counts, pallas_counts
+
+    # -- CAPE_MSDA_GATHER=fused|fusedq on the same weights: the last default
+    # request again (it is warm), then each selection with the unpacked
+    # decode, then `fused` with the prepacked decode
+    imgs, boxes = reqs[-1]
+
+    def request(label, **env):
+        with selection(**env), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pred.predict(imgs, proto, bboxes=boxes, **kw)      # warm-up
+            _reset_counts()
+            n_warm = len(caught)
+            t0 = time.perf_counter()
+            res = pred.predict(imgs, proto, bboxes=boxes, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        _check_results(np, res, len(imgs), len(PROTO_17))
+        s = max(r["length"] for r in res)
+        # bf16 keypoints against the default path's, reported only: the
+        # formulations round at other places and random weights amplify it
+        diff = max(np.abs(a["keypoints"] - b["keypoints"]).max()
+                   for a, b in zip(res, default_res))
+        same_len = [a["length"] for a in res] == [b["length"]
+                                                  for b in default_res]
+        print(f"{label}: {counts} launches over 1 request, decode steps "
+              f"{s}, {ms:.3f} ms warm; keypoints differ from the default "
+              f"path's by at most {diff:.3f} px, lengths equal: {same_len} "
+              f"({card})", flush=True)
+        return counts, s, {str(w.message) for w in caught[n_warm:]
+                           if "CAPE_MSDA" in str(w.message)}
+
+    enc = cfg.enc_layers * L
+    _, s, _ = request("default path again", CAPE_MSDA_GATHER=None,
+                      CAPE_DECODE_PREQUAD=None)
+    fused_counts = {}
+    for impl, name in (("fused", "fused_fwd"), ("fusedq", "quadfused_fwd")):
+        counts, s, warned = request(
+            f"CAPE_MSDA_GATHER={impl} CAPE_DECODE_PREQUAD=0",
+            CAPE_MSDA_GATHER=impl, CAPE_DECODE_PREQUAD="0")
+        _check_counts(counts, f"the {impl} request",
+                      **{name: enc + cfg.dec_layers * L * s})
+        check(not warned, f"the {impl} request warned: {warned}")
+        fused_counts[name] = counts[name]
+    counts, s, warned = request(
+        "CAPE_MSDA_GATHER=fused, prepacked decode", CAPE_MSDA_GATHER="fused",
+        CAPE_DECODE_PREQUAD=None)
+    _check_counts(counts, "the fused request with the prepacked decode",
+                  fused_fwd=enc, quad_gather=cfg.dec_layers * s)
+    check(len(warned) == 1 and "CAPE_DECODE_PREQUAD=0" in next(iter(warned)),
+          f"the prepacked decode under fused must warn once, got {warned}")
+    print(f"  its warning: {next(iter(warned))}", flush=True)
+    return model, default_counts, pallas_counts, fused_counts
 
 
 def _train_batch(np, cfg, rng):
@@ -420,7 +700,6 @@ def phase_training(torch, np, card):
     each; then the forward/backward/optimizer split, and one micro-step on
     the use_pallas_msda path."""
     from cape_tpu_torch import CAPE, CAPEConfig
-    from cape_tpu_torch.ops import gather, msda_kernel
     from cape_tpu_torch.train import create_train_state, make_train_step
     from cape_tpu_torch.train.state import global_norm
     from cape_tpu_torch.train.train_step import forward_losses
@@ -450,12 +729,12 @@ def phase_training(torch, np, card):
     for i, batch in enumerate(batches):
         before_p = [t.detach().clone() for t in params]
         before_m = [t.clone() for t in state.opt_state.masters]
-        _reset_counts(gather, msda_kernel)
+        _reset_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        counts = _counts(gather, msda_kernel)
+        counts = _counts()
         for k in launches:
             launches[k] += counts[k]
         m = {k: v.item() for k, v in metrics.items()}
@@ -464,10 +743,8 @@ def phase_training(torch, np, card):
               f"launches {counts}", flush=True)
         check(all(np.isfinite(v) for v in m.values()), "non-finite metrics")
         check(m["grad_norm"] > 0, "zero gradient norm")
-        check(counts == {"quad_gather": per_step, "quad_scatter": per_step,
-                         "msda_forward": 0},
-              f"micro-step {i + 1} launched {counts}; the path needs "
-              f"{per_step} gathers and {per_step} scatters")
+        _check_counts(counts, f"micro-step {i + 1}", quad_gather=per_step,
+                      quad_scatter=per_step)
         same_p = all(torch.equal(a, b) for a, b in zip(before_p, params))
         changed_m = sum(not torch.equal(a, b) for a, b in
                         zip(before_m, state.opt_state.masters))
@@ -534,7 +811,6 @@ def phase_training_pallas(torch, np, model, card):
     second is timed warm. Its deterministic loss against the default
     path's (bf16)."""
     from cape_tpu_torch import CAPE
-    from cape_tpu_torch.ops import gather, msda_kernel
     from cape_tpu_torch.train import create_train_state, make_train_step
     from cape_tpu_torch.train.train_step import forward_losses
 
@@ -555,22 +831,85 @@ def phase_training_pallas(torch, np, model, card):
     sites = cfg.enc_layers + cfg.dec_layers
     per_step = sites * cfg.num_feature_levels
     for i in range(2):
-        _reset_counts(gather, msda_kernel)
+        _reset_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, gen)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = _counts(gather, msda_kernel)
+        counts = _counts()
         m = {k: v.item() for k, v in metrics.items()}
         print(f"use_pallas_msda micro-step {i + 1}: {ms:.3f} ms, total "
               f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, launches "
               f"{counts} ({card})", flush=True)
         check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
               "use_pallas_msda step: non-finite or zero metrics")
-        check(counts == {"quad_gather": per_step, "quad_scatter": per_step,
-                         "msda_forward": sites},
-              f"use_pallas_msda micro-step launched {counts}")
+        _check_counts(counts, "the use_pallas_msda micro-step",
+                      quad_gather=per_step, quad_scatter=per_step,
+                      msda_forward=sites)
     return counts
+
+
+def phase_training_fused(torch, np, model, card):
+    """Flagship micro-steps under CAPE_MSDA_GATHER=fused and fusedq on the
+    same weights: per micro-step 48 forward and 48 backward launches of
+    the selected kernels (6 encoder + 6 decoder sites x 4 levels; no remat
+    at this batch), no gather and no scatter. Three micro-steps each (the
+    first is the warm-up), next to three more of the default path in the
+    same state of the card; the deterministic bf16 loss against the
+    default path's. Returns the backward launches of each selection."""
+    from cape_tpu_torch.train import create_train_state, make_train_step
+    from cape_tpu_torch.train.train_step import forward_losses
+
+    cfg = model.cfg
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    batch = _train_batch(np, cfg, np.random.default_rng(6))
+    per_step = (cfg.enc_layers + cfg.dec_layers) * cfg.num_feature_levels
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    launched = {}
+    for impl, kind in ((None, None), ("fused", "fused"),
+                       ("fusedq", "quadfused")):
+        label = f"CAPE_MSDA_GATHER={impl}" if impl else "default path"
+        if impl:
+            # on the weights as they stand now: the steps above moved them
+            with torch.no_grad():
+                want = forward_losses(model, cfg, batch)["total"].item()
+                with selection(CAPE_MSDA_GATHER=impl):
+                    got = forward_losses(model, cfg, batch)["total"].item()
+            print(f"{label} deterministic loss {got:.6f} vs default "
+                  f"{want:.6f} (tolerance 2e-2 rel: bf16)", flush=True)
+            check(abs(got - want) <= 2e-2 * abs(want),
+                  f"{label}: loss differs from the default path's")
+            launched[kind] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with selection(CAPE_MSDA_GATHER=impl):
+            for i in range(3):
+                _reset_counts()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, gen)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = _counts()
+                m = {k: v.item() for k, v in metrics.items()}
+                print(f"{label} micro-step {i + 1}: {ms:.3f} ms, total "
+                      f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+                      f"launches {counts} ({card})", flush=True)
+                check(all(np.isfinite(v) for v in m.values())
+                      and m["grad_norm"] > 0,
+                      f"{label} step: non-finite or zero metrics")
+                if impl:
+                    _check_counts(counts, f"the {label} micro-step",
+                                  **{f"{kind}_fwd": per_step,
+                                     f"{kind}_bwd": per_step})
+                    launched[kind] += counts[f"{kind}_bwd"]
+                else:
+                    _check_counts(counts, "the default micro-step",
+                                  quad_gather=per_step, quad_scatter=per_step)
+        print(f"{label}: peak memory over these micro-steps "
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    return launched
 
 
 def _grads(torch, model, cfg, batch):
@@ -606,9 +945,10 @@ def phase_fp32_grads(torch, np):
     """fp32 gradients and one real update, card (kernels) against CPU
     (plain versions), same seeded weights and batch, TF32 off, at a config
     small enough for the CPU (ResNet-50 at 128 px, 2+2 layers, dropout
-    0), on the default and the use_pallas_msda path. This is the check
-    that the value path gets its gradient; a scatter that loses the
-    contributions of duplicate indices must fail it."""
+    0), on the default and the use_pallas_msda path and under
+    CAPE_MSDA_GATHER=fused and fusedq. This is the check that the value
+    path gets its gradient; a scatter that loses the contributions of
+    duplicate indices must fail it."""
     from cape_tpu_torch import CAPE, CAPEConfig
     from cape_tpu_torch.ops import gather
     from cape_tpu_torch.train import create_train_state, make_train_step
@@ -623,28 +963,38 @@ def phase_fp32_grads(torch, np):
     weights = CAPE(cfg, device="cpu",
                    generator=torch.Generator().manual_seed(5)).state_dict()
     models, cpu_grads = {}, {}
-    for pallas in (False, True):
+    sites = (cfg.enc_layers + cfg.dec_layers) * cfg.num_feature_levels
+    for label, pallas, impl, kind in (
+            ("default", False, None, None),
+            ("use_pallas_msda", True, None, None),
+            ("fused", False, "fused", "fused"),
+            ("fusedq", False, "fusedq", "quadfused")):
         c = cfg.replace(use_pallas_msda=pallas)
         m_cpu = CAPE(c, device="cpu", generator=torch.Generator().manual_seed(6))
         m_gpu = CAPE(c, device="cuda", generator=torch.Generator().manual_seed(6))
         m_cpu.load_state_dict(weights)
         m_gpu.load_state_dict(weights)
         names = [n for n, _ in m_cpu.named_parameters()]
-        l_cpu, g_cpu = _grads(torch, m_cpu, c, batch)
-        l_gpu, g_gpu = _grads(torch, m_gpu, c, batch)
+        with selection(CAPE_MSDA_GATHER=impl):
+            l_cpu, g_cpu = _grads(torch, m_cpu, c, batch)
+            _reset_counts()
+            l_gpu, g_gpu = _grads(torch, m_gpu, c, batch)
+        if kind:
+            # the CPU run above counts nothing: these are the card's
+            _check_counts(_counts(), f"the fp32 {label} gradient",
+                          **{f"{kind}_fwd": sites, f"{kind}_bwd": sites})
         ratios = _grad_ratios(torch, g_gpu, g_cpu)
         order = sorted(range(len(names)), key=lambda i: -ratios[i])
         value = sum(g.abs().sum().item() for n, g in zip(names, g_gpu)
                     if "value_proj.weight" in n)
-        label = "use_pallas_msda" if pallas else "default"
         print(f"fp32 card vs CPU [{label}]: loss {l_gpu:.7f} vs {l_cpu:.7f}; "
               f"gradient error over tolerance, largest: "
               f"{[(names[i], f'{ratios[i]:.3e}') for i in order[:4]]}; "
               f"value_proj gradient mass on the card {value:.6f} "
               f"(tolerance per tensor {GRAD_RTOL:g} of its own L2 norm + "
               f"{GRAD_ATOL:g} of the global norm: fp32 summation order of "
-              f"convs and matmuls, TF32 off, and the scatter's atomics)",
-              flush=True)
+              f"convs and matmuls, TF32 off, and the backward kernels' "
+              f"atomics)", flush=True)
         check(value > 0, f"no gradient reached value_proj on the card "
               f"({label})")
         check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
@@ -652,7 +1002,7 @@ def phase_fp32_grads(torch, np):
         check(ratios[order[0]] <= 1.0,
               f"fp32 gradient of {names[order[0]]} ({label}): "
               f"{ratios[order[0]]:.3e} of its tolerance")
-        models[pallas], cpu_grads[pallas] = (m_cpu, m_gpu), g_cpu
+        models[label], cpu_grads[label] = (m_cpu, m_gpu), g_cpu
 
     # the same check against a faulty scatter: plain stores in place of
     # atomic adds, so of the rows that share an index one wins
@@ -668,10 +1018,10 @@ def phase_fp32_grads(torch, np):
     scatter = gather.quad_scatter
     gather.quad_scatter = lossy_scatter
     try:
-        _, g_bad = _grads(torch, models[False][1], cfg, batch)
+        _, g_bad = _grads(torch, models["default"][1], cfg, batch)
     finally:
         gather.quad_scatter = scatter
-    bad = _grad_ratios(torch, g_bad, cpu_grads[False])
+    bad = _grad_ratios(torch, g_bad, cpu_grads["default"])
     flagged = [n for n, r in zip(names, bad) if r > 1.0]
     value_bad = [r for n, r in zip(names, bad) if "value_proj.weight" in n]
     print(f"fp32 card vs CPU with a scatter that loses duplicates: "
@@ -684,7 +1034,7 @@ def phase_fp32_grads(torch, np):
     # one real update on each device (default path), compared in units of
     # the group lr
     after = {}
-    for dev, m in zip(("cpu", "cuda"), models[False]):
+    for dev, m in zip(("cpu", "cuda"), models["default"]):
         st = create_train_state(cfg, m, spe)
         before = [t.detach().cpu().clone() for t in st.opt_state.masters]
         make_train_step(m, cfg, spe)(st, batch)
@@ -711,8 +1061,9 @@ def phase_fp32_grads(torch, np):
 
 
 def phase_fp32_checks(torch, np, model):
-    """fp32: use_pallas encoder memory vs the default's on the card, and
-    the card (kernels) vs the CPU (plain versions) for one image."""
+    """fp32: use_pallas encoder memory vs the default's on the card, the
+    card (kernels) vs the CPU (plain versions) for one image, and the
+    fused formulations vs the default path on the card."""
     from cape_tpu_torch import CAPE
     from cape_tpu_torch.models.cape import autoregressive_decode
 
@@ -760,6 +1111,28 @@ def phase_fp32_checks(torch, np, model):
     torch.testing.assert_close(mem_gpu, mem_cpu, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(lg, lc, atol=1e-3, rtol=1e-3)
 
+    # the fused formulations on the card against the default path on the
+    # card: the encoder memory, and the first decode step with the unpacked
+    # decode (its 6 layers x 4 levels go through the fused kernels too)
+    sites = cfg32.enc_layers * cfg32.num_feature_levels
+    for impl, name in (("fused", "fused_fwd"), ("fusedq", "quadfused_fwd")):
+        with selection(CAPE_MSDA_GATHER=impl, CAPE_DECODE_PREQUAD="0"), \
+                torch.inference_mode():
+            _reset_counts()
+            mem_f = m32.encode_image(x)
+            out_f = autoregressive_decode(m32, one, sc, sm, se,
+                                          force_length=1)
+        _check_counts(_counts(), f"the fp32 {impl} check", **{
+            name: 2 * sites + cfg32.dec_layers * cfg32.num_feature_levels})
+        lf = out_f["pred_logits"][:, 0]
+        print(f"fp32 {impl} vs default on the card: encoder memory max abs "
+              f"err {(mem_f - mem).abs().max().item():.3e} (tolerance 1e-4 "
+              f"abs + 1e-4 rel), first-step logits max abs err "
+              f"{(lf.cpu() - lg).abs().max().item():.3e} (tolerance 1e-3 "
+              f"abs + 1e-3 rel)", flush=True)
+        torch.testing.assert_close(mem_f, mem, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lf.cpu(), lg, atol=1e-3, rtol=1e-3)
+
 
 # ----------------------------------------------------------------------
 def main() -> int:
@@ -776,6 +1149,8 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    for name in ("CAPE_MSDA_GATHER", "CAPE_MSDA_TINY", "CAPE_DECODE_PREQUAD"):
+        os.environ.pop(name, None)     # each phase sets what it selects
     try:
         card = card_identity()
         print(card, flush=True)
@@ -789,9 +1164,11 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
         kernels = phase_kernels(torch, card)
-        model, default_counts, pallas_counts = phase_serving(torch, np, card)
+        model, default_counts, pallas_counts, fused_counts = phase_serving(
+            torch, np, card)
         train_model, train_counts = phase_training(torch, np, card)
         phase_training_pallas(torch, np, train_model, card)
+        fused_bwd_counts = phase_training_fused(torch, np, train_model, card)
         del train_model
         phase_fp32_checks(torch, np, model)
         phase_fp32_grads(torch, np)
@@ -801,10 +1178,17 @@ def main() -> int:
     except (Failed, AssertionError, RuntimeError, ValueError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
-    # each kernel's launches from its own path's run
-    kernels[0]["launches"] = default_counts["quad_gather"]
-    kernels[1]["launches"] = pallas_counts["msda_forward"]
-    kernels[2]["launches"] = train_counts["quad_scatter"]
+    # each kernel's launches from its own path's run: the serving requests
+    # for the forward kernels, the training micro-steps for the backward
+    launches = {"quad_gather": default_counts["quad_gather"],
+                "msda_forward": pallas_counts["msda_forward"],
+                "quad_scatter": train_counts["quad_scatter"],
+                "fused_fwd": fused_counts["fused_fwd"],
+                "quadfused_fwd": fused_counts["quadfused_fwd"],
+                "fused_bwd": fused_bwd_counts["fused"],
+                "quadfused_bwd": fused_bwd_counts["quadfused"]}
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ then:
    the kernels by total device time. The Chrome trace goes to
    `<out>/torch_serve_trace.json`.
 
+The MSDA formulation is the port's own selection: set `CAPE_MSDA_GATHER`
+(`fused`, `fusedq`, ...) and `CAPE_DECODE_PREQUAD=0` in the environment to
+profile another one; the selection that ran is printed.
+
 Imports nothing of JAX. Prints the card's name and power limit first.
 """
 
@@ -38,6 +42,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (shared request generator and prototype)
 from cape_tpu_torch import CAPE, CAPEConfig, CAPEPredictor  # noqa: E402
+from cape_tpu_torch.ops.gather import default_gather_impl  # noqa: E402
+
+
+def selection_line() -> str:
+    """The MSDA selection the port reads from the environment."""
+    return (f"selection: CAPE_MSDA_GATHER={default_gather_impl()}, "
+            f"CAPE_MSDA_TINY={os.environ.get('CAPE_MSDA_TINY', '') or '-'}, "
+            f"CAPE_DECODE_PREQUAD="
+            f"{os.environ.get('CAPE_DECODE_PREQUAD', '1')}")
 
 
 def _timed(stages, name, fn):
@@ -77,6 +90,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     print(chip_smoke.card_identity(), flush=True)
+    print(selection_line(), flush=True)
     cfg = CAPEConfig()
     model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     pred = CAPEPredictor(cfg, model, batch_size=8)

@@ -16,6 +16,10 @@ ending in a real AdamW update), then:
    the kernels by total device time, and the share of the port's own
    kernels. The Chrome trace goes to `<out>/torch_train_trace.json`.
 
+The MSDA formulation is the port's own selection: set `CAPE_MSDA_GATHER`
+(`fused`, `fusedq`, ...) in the environment to profile another one; the
+selection that ran is printed.
+
 Imports nothing of JAX. Prints the card's name and power limit first.
 """
 
@@ -39,10 +43,13 @@ import chip_smoke  # noqa: E402  (shared batch generator)
 from cape_tpu_torch import CAPE, CAPEConfig  # noqa: E402
 from cape_tpu_torch.train import (create_train_state,  # noqa: E402
                                   make_train_step)
-from torch_serve_profile import _busy_ms  # noqa: E402
+from torch_serve_profile import _busy_ms, selection_line  # noqa: E402
 
-#: kernel-name fragments of the port's hand-written kernels
-OWN = ("quad_gather_kernel", "quad_scatter_kernel", "msda_forward_kernel")
+#: kernel-name fragments of the port's hand-written kernels; a name counts
+#: for the first fragment it holds (quadfused_* before fused_*)
+OWN = ("quad_gather_kernel", "quad_scatter_kernel", "msda_forward_kernel",
+       "quadfused_fwd_kernel", "quadfused_bwd_kernel", "fused_fwd_kernel",
+       "fused_bwd_kernel")
 
 
 def main() -> int:
@@ -54,6 +61,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     print(chip_smoke.card_identity(), flush=True)
+    print(selection_line(), flush=True)
     cfg = CAPEConfig()
     spe = cfg.episodes_per_epoch // cfg.batch_size
     model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -102,10 +110,10 @@ def main() -> int:
         by_name[e.name][1] += 1
     own = {f: [0.0, 0] for f in OWN}
     for name, (ms, n) in by_name.items():
-        for f in OWN:
-            if f in name:
-                own[f][0] += ms
-                own[f][1] += n
+        f = next((f for f in OWN if f in name), None)
+        if f is not None:
+            own[f][0] += ms
+            own[f][1] += n
     for f, (ms, n) in own.items():
         print(f"  port kernel {f}: {ms:.3f} ms over {n} launches "
               f"({100 * ms / busy:.1f}% of device busy)", flush=True)

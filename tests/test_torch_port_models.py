@@ -288,7 +288,8 @@ def test_from_jax_params_rejects_bad_trees(tiny, fault):
 # -- package rules ---------------------------------------------------------------
 def test_port_imports_neither_jax_nor_cape_tpu():
     """Every submodule imports with jax, flax and optax blocked, the
-    training subpackages `losses/` and `train/` included, and no
+    training subpackages `losses/` and `train/` and the fused MSDA kernels'
+    module included, and no
     `cape_tpu.` module of the JAX package gets loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -299,7 +300,8 @@ def test_port_imports_neither_jax_nor_cape_tpu():
         "for m in pkgutil.walk_packages(cape_tpu_torch.__path__, "
         "'cape_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('losses.criterion', 'train.state', 'train.train_step'):\n"
+        "for m in ('losses.criterion', 'train.state', 'train.train_step',\n"
+        "          'ops.msda_fused'):\n"
         "    assert 'cape_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'cape_tpu' or "
         "k.startswith('cape_tpu.')]\n"

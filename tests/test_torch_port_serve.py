@@ -8,6 +8,8 @@ samples stop at different steps). Tolerances: logits and coords 1e-4
 unfinished equal; pixel keypoints 1e-3 px.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +89,81 @@ def test_use_pallas_decode_matches_jax_default(setup, episode, jax_outputs):
     pm = port_model(cfg, params, use_pallas_msda=True)
     assert pm.encoder.layers[0].self_attn.use_pallas
     _assert_decode_equal(port_decode(pm, *episode), jax_outputs["default"])
+
+
+@pytest.mark.parametrize("impl", ["fused", "fusedq"])
+def test_unpacked_decode_with_gather_impl_matches_jax(setup, episode,
+                                                      monkeypatch, impl):
+    """`CAPE_DECODE_PREQUAD=0` with `CAPE_MSDA_GATHER=fused|fusedq`, set
+    for both packages: the decode keeps plain per-layer values and every
+    step runs the selected formulation (3 steps: the JAX side runs its
+    Pallas kernels in interpret mode)."""
+    from cape_tpu_torch.ops import msda as port_msda
+
+    cfg, jm, params, pm = setup
+    monkeypatch.setenv("CAPE_DECODE_PREQUAD", "0")
+    monkeypatch.setenv("CAPE_MSDA_GATHER", impl)
+    want = {k: np.asarray(v) for k, v in jax_decode(
+        jm, {"params": params}, *episode, force_length=3, max_len=3).items()}
+    sites, prequad = [], []
+    core = port_msda.ms_deform_attn_core
+    monkeypatch.setattr(port_msda, "ms_deform_attn_core", lambda *a, **k:
+                        sites.append(a[2].shape[1]) or core(*a, **k))
+    monkeypatch.setattr(port_msda, "ms_deform_attn_core_prequad",
+                        lambda *a, **k: prequad.append(1))
+    mem_values, _ = pm.decode_static(
+        torch.zeros(1, sum(h * w for h, w in pm.spatial_shapes),
+                    cfg.hidden_dim), torch.zeros(1, 5, cfg.hidden_dim))
+    assert all(v.ndim == 4 for v in mem_values)
+    got = port_decode(pm, *episode, force_length=3, max_len=3)
+    _assert_decode_equal(got, want)
+    assert (want["lengths"] == 3).all()
+    # 2 encoder sites over the whole memory, then 2 decoder layers x 3
+    # single-query steps through the same core; no prequad site
+    assert sites[cfg.enc_layers:] == [1] * (cfg.dec_layers * 3)
+    assert not prequad
+
+
+@pytest.fixture
+def fresh_jax_decode_trace():
+    """The JAX predictor's jitted decode reads the variables while it
+    traces and caches the trace by model and shapes: drop it before, so
+    the selection is traced, and after, so no later test inherits it."""
+    from cape_tpu.eval.evaluate import _decode_jit
+
+    _decode_jit.clear_cache()
+    yield
+    _decode_jit.clear_cache()
+
+
+@pytest.mark.parametrize("impl", ["fused", "fusedq"])
+def test_predict_unpacked_with_gather_impl_matches_jax(
+        setup, monkeypatch, fresh_jax_decode_trace, impl):
+    """A served request under the same two variables gives the JAX
+    predictor's lengths, generated flags and keypoints (2 decode steps:
+    `min_decode_len` of the tiny config)."""
+    cfg, _, params, _ = setup
+    monkeypatch.setenv("CAPE_DECODE_PREQUAD", "0")
+    monkeypatch.setenv("CAPE_MSDA_GATHER", impl)
+    # EOS as early as allowed: a large EOS logit on the last class head
+    early = copy.deepcopy(params)
+    head = early["decoder"][f"class_head_{cfg.dec_layers - 1}"]
+    head["bias"] = head["bias"] + np.array([0.0, 0.0, 50.0], np.float32)
+    pm = port_model(cfg, early)
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for h, w in ((80, 100), (64, 64))]
+    proto = rng.uniform(0.1, 0.9, (5, 2))
+    kw = dict(skeleton=[[0, 1], [1, 2], [2, 3], [3, 4]],
+              bboxes=[None, (4, 8, 40, 50)])
+    want = JaxPredictor(cfg, early, batch_size=2).predict(imgs, proto, **kw)
+    got = PortPredictor(pm.cfg, pm, batch_size=2, device="cpu").predict(
+        imgs, proto, **kw)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["length"] == w["length"] == cfg.min_decode_len + 1
+        np.testing.assert_array_equal(g["generated"], w["generated"])
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"], atol=1e-3)
 
 
 def test_predict_matches_jax_predictor(setup):

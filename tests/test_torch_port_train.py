@@ -202,6 +202,63 @@ def test_every_parameter_gradient_matches_jax():
     assert value_path > 0      # the gather's backward reached value_proj
 
 
+@pytest.mark.parametrize("impl", ["fused", "fusedq"])
+def test_gather_impl_outputs_loss_and_gradients_match_jax(monkeypatch, impl):
+    """The whole training path under `CAPE_MSDA_GATHER=fused|fusedq`,
+    set for both packages (the JAX side runs its Pallas kernels in
+    interpret mode, forward and backward): the teacher-forced outputs, the
+    loss and every parameter's gradient, with the tolerances of the two
+    tests above."""
+    from cape_tpu_torch.ops import msda as port_msda
+
+    monkeypatch.setenv("CAPE_MSDA_GATHER", impl)
+    cfg, jm, params = jax_tiny(0)
+    pm = port_model(cfg, params)
+    batch = train_batch(cfg, 2, seed=2)
+
+    @jax.jit                       # a fresh trace: the variable is read in it
+    def jax_run(p, batch):
+        def loss(p):
+            out = jm.apply({"params": p}, *(batch[k] for k in (
+                "query_images", "support_coords", "support_mask",
+                "skeleton_edges", "targets")))
+            return jax_criterion(out, batch["targets"], cfg)["total"], out
+        return jax.value_and_grad(loss, has_aux=True)(p)
+
+    (loss, want_out), grads = jax_run(params, batch)
+    ran = []
+    core = getattr(port_msda, {"fused": "ms_deform_attn_core_fused",
+                               "fusedq": "ms_deform_attn_core_quadfused"}[impl])
+    monkeypatch.setattr(port_msda, core.__name__,
+                        lambda *a: ran.append(1) or core(*a))
+    tb = _torch_batch(batch)
+    got_out = pm(*(tb[k] for k in ("query_images", "support_coords",
+                                   "support_mask", "skeleton_edges",
+                                   "targets")))
+    assert len(ran) == cfg.enc_layers + cfg.dec_layers
+    assert got_out.keys() == want_out.keys()
+    for k in want_out:
+        np.testing.assert_allclose(got_out[k].detach().numpy(),
+                                   np.asarray(want_out[k]), atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
+    losses = port_criterion(got_out, tb["targets"], _port_cfg(cfg))
+    np.testing.assert_allclose(losses["total"].item(), float(loss), rtol=1e-5)
+    want = _flat(grads)
+    names = [n for n, _ in pm.named_parameters()]
+    got = torch.autograd.grad(losses["total"],
+                              [p for _, p in pm.named_parameters()])
+    gnorm = np.sqrt(sum((w.astype(np.float64) ** 2).sum()
+                        for w in want.values()))
+    value_path = 0.0
+    for name, g in zip(names, got):
+        err = np.abs(g.numpy() - want[name]).max() / gnorm
+        conv = name.startswith(("backbone.", "input_projs."))
+        assert err < (1e-3 if conv else 2e-5), (name, err)
+        if "value_proj.weight" in name:
+            value_path += float(g.abs().sum())
+    assert value_path > 0      # the fused backward reached value_proj
+
+
 # -- the train step ---------------------------------------------------------------
 def _jax_trajectory(n_steps):
     """n JAX train steps from the seeded weights; the state after each."""
