@@ -12,8 +12,14 @@
 // vectors, consecutive threads on consecutive vectors of one row (a
 // 256-byte bf16 row is a half-warp, a 512-byte fp32 row a warp), so every
 // load and store is a full coalesced 16-byte access. An index outside the
-// slab writes zeros and never reads. The decode-step call (B*H = 64
-// slabs, N = 16 rows) moves about 0.5 MB and is bound by its launch.
+// slab writes zeros and never reads.
+//
+// The decode-step call (B*H = 64 slabs, N = 16 rows) moves about 0.5 MB:
+// one block per slab, a few microseconds on the device. What bounded it
+// was the Python wrapper around the launch, not this kernel, so the
+// wrapper (`ops/gather.py`) launches directly when no gradient can flow,
+// resolves the launch function once and copies only operands that are not
+// contiguous.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
