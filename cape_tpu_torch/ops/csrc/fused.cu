@@ -12,9 +12,9 @@
 // `_fused_bwd_kernel` (:99, pallas_call at :183). On the TPU the gather is
 // a weighted one-hot matrix (four compares over an (R, HW) tile) times
 // the slab on the MXU, because Mosaic cannot gather, and the backward
-// carries dslab across sequential grid steps. Here a thread computes
-// gi + shift_c, tests the range and loads the row; blocks run in no
-// order, so the backward's sum across rows is made with atomics.
+// carries dslab across sequential grid steps. Here the forward's thread
+// computes gi + shift_c, tests the range and loads the row, and the
+// backward's rows are owned by blocks.
 //
 // Bound: bytes. Forward: the slab rows the corners select, gi, w4 and
 // the (BH, N, Dh) output, each once; the 8 flops a loaded value costs are
@@ -22,20 +22,30 @@
 // dslab and dw4 written once. Neither writes the (BH, N, 4 * Dh) gathered
 // rows that the quad-row path puts through device memory.
 //
-// Design: one thread per group of 4 consecutive channels of an output row
-// (rows4.cuh), so Dh / 4 neighbouring lanes share a row: they read its gi
-// and w4 from the same address (one broadcast access), each corner as
+// Forward: one thread per group of 4 consecutive channels of an output
+// row (rows4.cuh), so Dh / 4 neighbouring lanes share a row: they read its
+// gi and w4 from the same address (one broadcast access), each corner as
 // Dh * elt contiguous bytes, and a warp writes 32 / (Dh / 4) whole
 // consecutive output rows. Sums are fp32 with one rounding at the store.
-// Backward: each thread adds w_c * dout to dslab with one float4 vector
-// atomic (as scatter.cu: whole 32-byte sectors) into a zeroed fp32 buffer
-// that the wrapper casts to the slab dtype; the order of that sum varies
-// from run to run. About 21 corners land on each slab row at the
-// encoder's level 0 and about 1,360 at its smallest level, where the
-// atomics serialise in the L2; a per-block partial sum in shared memory
-// would take that off. dw4 needs no atomics: the row's lanes reduce their
-// partial dot products with shuffles and lane 0 of the row stores all 4.
+// Backward: the row lists of rowlist.cuh, keyed by CELL: a block owns a
+// tile of raw rows [s0, s1) and lists each entry whose cell gi[r] lies in
+// [s0 - Wl - 1, s1), the tile and a halo of Wl + 1 cells (an entry whose
+// corners span two tiles is listed by both). The lanes of row s (a group
+// of 4 lanes of 16 bytes for Dh = 32 bf16) load it once (only where an
+// entry reaches it) and read the four lists of cells s, s - 1, s - Wl and
+// s - Wl - 1 as corners 0-3 side by side, one entry of each in flight:
+// they add w4[r, c] * dout[r] to their sums and dot dout[r] with the row,
+// and the four dots are summed over the group with log2(G) + 1 shuffles.
+// Every in-range (r, c) is visited once (by the owner of gi[r] + shift_c),
+// so neither sum needs atomics; the blocks of tile 0 write dw4 = 0 for
+// the corners outside [0, HW) while they scan. dout[r] is read by up to
+// four rows, from L2. About 21 corners land on a row at the encoder's
+// level 0 (one group a row), 340 a block at level 3 (HW = 64, the entries
+// split over a cluster of 4; a whole warp a row).
 
+#include <type_traits>
+
+#include "rowlist.cuh"
 #include "rows4.cuh"
 
 using namespace rows4;
@@ -67,39 +77,128 @@ __global__ void fused_fwd_kernel(const void* __restrict__ slab,
   store4<kBf16>(out, (r << lg) + q, acc);
 }
 
-template <bool kBf16>
-__global__ void fused_bwd_kernel(const void* __restrict__ slab,
-                                 const int* __restrict__ gi,
-                                 const void* __restrict__ w4,
-                                 const void* __restrict__ dout,
-                                 float4* __restrict__ dslab,
-                                 void* __restrict__ dw4, int HW, int N,
-                                 int Wl, int lg, long long slab_bs) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = i < (N << lg);  // whole rows: N << lg groups
-  const long long b = blockIdx.y;
-  const long long r = b * N + (i >> lg);
-  const int q = i & ((1 << lg) - 1);
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  if (active) {
-    const long long base = __ldg(gi + r);
-    const float4 w = load4<kBf16>(w4, r);
-    const float4 d = load4<kBf16>(dout, (r << lg) + q);
-    const float wc[4] = {w.x, w.y, w.z, w.w};
-    const int shift[4] = {0, 1, Wl, Wl + 1};
+// The backward on cell lists (rowlist.cuh): keys are cells, the tile's
+// rows and the Wl + 1 cells below them. A group of G = `units` lanes (a
+// raw row's units of W values, at most a warp) holds a row s; the groups
+// of its team (`split` of them) take other entries of the lists of cells
+// s, s - 1, s - Wl, s - Wl - 1, corners 0, 1, 2, 3.
+template <bool kBf16, int kBytes>
+__global__ void __launch_bounds__(rowlist::kThreads, 2)
+fused_bwd_kernel(const void* __restrict__ slab, const int* __restrict__ gi,
+                 const void* __restrict__ w4, const void* __restrict__ dout,
+                 void* __restrict__ dslab, void* __restrict__ dw4, int HW,
+                 int N, int Wl, int units, int rows_per_tile, int tiles,
+                 int cap, int use_tile, int split, long long slab_bs) {
+  using namespace rowlist;
+  extern __shared__ __align__(16) unsigned char smem[];
+  using U = Unit<kBf16, kBytes>;
+  using Raw = typename U::Raw;
+  using T = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+  constexpr int W = U::kVals;
+  const int C = units * W, halo = Wl + 1;
+  Block blk(smem, use_tile, HW, N, C, rows_per_tile, tiles, cap, halo);
+  const Team m(units, split);  // G == units
+  // this slab's arrays, so that offsets within them are 32-bit
+  const long long b = blk.b;
+  const Raw* slabb = reinterpret_cast<const Raw*>(slab) +
+                     (b * slab_bs + blk.row0) * units + m.gl;
+  const Raw* doutb =
+      reinterpret_cast<const Raw*>(dout) + b * N * units + m.gl;
+  const T* w4b = reinterpret_cast<const T*>(w4) + b * N * 4;
+  T* dw4b = reinterpret_cast<T*>(dw4) + b * N * 4;
+  Raw* out = reinterpret_cast<Raw*>(dslab) + (b * HW + blk.row0) * units;
+  const int shift[4] = {0, 1, Wl, Wl + 1};
+  const bool first_tile = blk.tile == 0;
+
+  for (int s0 = 0;;) {
+    // a corner outside [0, HW) is read by no row: tile 0 writes its dw4
+    blk.sort(gi + b * N, s0, [&](int i, int v) {
+      if (!first_tile) return;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const long long idx = base + shift[c];
-      if (idx < 0 || idx >= HW) continue;
-      p[c] = dot4(d, load4<kBf16>(slab, ((b * slab_bs + idx) << lg) + q));
-      atomicAdd(dslab + (((b * HW + idx) << lg) + q),
-                make_float4(wc[c] * d.x, wc[c] * d.y, wc[c] * d.z,
-                            wc[c] * d.w));
+      for (int c = 0; c < 4; ++c) {
+        const long long t = (long long)v + shift[c];
+        if (t < 0 || t >= HW) store1<kBf16>(dw4b, i * 4 + c, 0.f);
+      }
+    });
+    // one row: the groups of team t take positions sub + k * S of each of
+    // its four lists, one of each list in flight a lane (corner c from the
+    // list of cell s - shift_c)
+    auto walk = [&](const Team& t, int r, bool mine) {
+      int a[4], len[4];
+      int most = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = r + halo - shift[c];
+        a[c] = mine ? blk.begin(k) : 0;
+        len[c] = mine ? blk.end(k) - a[c] : 0;
+        most = max(most, len[c]);
+      }
+      // the warp's teams go in step
+      const int steps = __reduce_max_sync(0xffffffffu, most);
+      float acc[W], sv[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc[k] = 0.f;
+      // the slab row, read once, and only for a row that entries reach
+      if (most > 0) U::unpack(__ldg(slabb + r * units), sv);
+      for (int k0 = 0; k0 < steps; k0 += t.S) {
+        const int pos = k0 + t.sub;
+        int i[4];
+        Raw d[4];
+        float w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          i[c] = pos < len[c] ? blk.at(s0 + blk.list[a[c] + pos]) : -1;
+          d[c] = i[c] >= 0 ? __ldg(doutb + i[c] * units) : U::zero();
+          w[c] = i[c] >= 0 ? load1<kBf16>(w4b, i[c] * 4 + c) : 0.f;
+        }
+        float q[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float dv[W];
+          U::unpack(d[c], dv);
+          q[c] = 0.f;
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            acc[k] += w[c] * dv[k];
+            q[c] += dv[k] * sv[k];
+          }
+        }
+        // dw4 of the four entries: each dot summed over its group
+        t.sum4(q, [&](int c, float v) {
+          const int ic = c == 0 ? i[0] : c == 1 ? i[1] : c == 2 ? i[2] : i[3];
+          if (ic >= 0) store1<kBf16>(dw4b, ic * 4 + c, v);
+        });
+      }
+      t.across<W>(acc);
+      if (!mine || t.sub) return;
+      if (use_tile)
+        blk.add<W>(r, C, t.gl * W, acc);
+      else
+        out[r * units + t.gl] = U::pack(acc);
+    };
+    // a team per row, R rows a warp (putting long rows aside for the whole
+    // block, as quadfused.cu does, measured slower here)
+    for (int r0; (r0 = blk.take(m.R)) < blk.rows;) {
+      const int r = r0 + m.team;
+      walk(m, r, r < blk.rows);
     }
+    s0 += cap;
+    if (s0 >= blk.share) break;
+    blk.reset();
   }
-  row_sum4(p, 1 << lg);
-  if (active && q == 0)
-    store4<kBf16>(dw4, r, make_float4(p[0], p[1], p[2], p[3]));
+  if (use_tile) blk.finish<U>(out, C, units);
+}
+
+template <bool kBf16, int kBytes>
+cudaError_t bwd(const rowlist::Plan& p, int BH, cudaStream_t stream,
+                const void* slab, const void* gi, const void* w4,
+                const void* dout, void* dslab, void* dw4, int HW, int N,
+                int Wl, int units, long long slab_bs) {
+  static bool done[64] = {};
+  return rowlist::launch(fused_bwd_kernel<kBf16, kBytes>, done, p, BH,
+                         stream, slab, (const int*)gi, w4, dout, dslab, dw4,
+                         HW, N, Wl, units, p.rows_per_tile, p.tiles, p.cap,
+                         p.use_tile, p.split, slab_bs);
 }
 
 }  // namespace
@@ -130,28 +229,40 @@ extern "C" int fused_fwd_launch(const void* slab, const void* gi,
   return (int)cudaGetLastError();
 }
 
-// As above plus dout (BH, N, Dh) in the slab's dtype; dslab (BH, HW, Dh)
-// fp32, contiguous and zeroed by the caller; dw4 (BH, N, 4) in the slab's
-// dtype.
+// As above plus dout (BH, N, Dh) in the slab's dtype, and the outputs
+// dslab (BH, HW, Dh), contiguous, and dw4 (BH, N, 4), both in the slab's
+// dtype and written whole by the kernel. The last 8 ints are the plan
+// (rowlist.cuh's `Plan`) of `ops.msda_fused.sample_bwd_plan(BH, HW, N, Dh,
+// Wl + 1, 4)`.
 extern "C" int fused_bwd_launch(const void* slab, const void* gi,
                                 const void* w4, const void* dout,
                                 void* dslab, void* dw4, int BH, int HW,
-                                int N, int Wl, int Dh, long long slab_bs,
-                                int dtype, void* stream) {
-  int lg, err;
-  const dim3 grid = launch_grid(BH, N, Dh, dtype, &lg, &err);
-  if (err) return err;
-  if (grid.x > 0 && grid.y > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 1) {
-      fused_bwd_kernel<true><<<grid, kThreads, 0, s>>>(
-          slab, (const int*)gi, w4, dout, (float4*)dslab, dw4, HW, N, Wl, lg,
-          slab_bs);
-    } else {
-      fused_bwd_kernel<false><<<grid, kThreads, 0, s>>>(
-          slab, (const int*)gi, w4, dout, (float4*)dslab, dw4, HW, N, Wl, lg,
-          slab_bs);
-    }
-  }
-  return (int)cudaGetLastError();
+                                int N, int Wl, int Dh, int rows_per_tile,
+                                int tiles, int cluster, int cap, int use_tile,
+                                int threads, int smem_bytes, int split,
+                                long long slab_bs, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || log2_groups(Dh) < 0 || BH < 0 ||
+      HW < 1 || Wl < 1 || 4LL * Dh * N > 0x7fffffffLL ||
+      (long long)Dh * HW > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;   // offsets in a slab are 32-bit
+  if (BH == 0) return (int)cudaSuccess;
+  const rowlist::Plan p = {rows_per_tile, tiles,   cluster,    cap,
+                           use_tile,      threads, smem_bytes, split};
+  if (const int err = rowlist::check_plan(p, HW, N, Dh, Wl + 1, BH))
+    return err;
+  const int elt = dtype == 1 ? 2 : 4;
+  const int bytes = (Dh * elt) % 16 == 0 ? 16 : 8;   // a lane's unit
+  const int units = Dh * elt / bytes;                 // at most 32
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (dtype == 1 && bytes == 8)
+    err = bwd<true, 8>(p, BH, s, slab, gi, w4, dout, dslab, dw4, HW, N, Wl,
+                       units, slab_bs);
+  else if (dtype == 1)
+    err = bwd<true, 16>(p, BH, s, slab, gi, w4, dout, dslab, dw4, HW, N, Wl,
+                        units, slab_bs);
+  else
+    err = bwd<false, 16>(p, BH, s, slab, gi, w4, dout, dslab, dw4, HW, N,
+                         Wl, units, slab_bs);
+  return (int)err;
 }

@@ -1,8 +1,8 @@
-// Shared by fused.cu and quadfused.cu: a thread's unit of work is a group
-// of 4 consecutive values of a row, moved in one 8-byte (bf16) or 16-byte
-// (fp32) access and held as fp32 in registers. Group index `i` counts
-// groups from the start of the array, so the array must be 16-byte
-// aligned and every row a whole number of groups.
+// Shared by the forward kernels of fused.cu and quadfused.cu: a thread's
+// unit of work is a group of 4 consecutive values of a row, moved in one
+// 8-byte (bf16) or 16-byte (fp32) access and held as fp32 in registers.
+// Group index `i` counts groups from the start of the array, so the array
+// must be 16-byte aligned and every row a whole number of groups.
 
 #pragma once
 
@@ -44,10 +44,6 @@ __device__ __forceinline__ void store4(void* __restrict__ p, long long i,
   }
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
 __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.x += w * v.x;
   acc.y += w * v.y;
@@ -55,18 +51,7 @@ __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.w += w * v.w;
 }
 
-// Sum each of p[0..3] over the `gpr` consecutive lanes that share a row
-// (gpr a power of two up to 32, rows aligned to it), every lane of the
-// warp taking part.
-__device__ __forceinline__ void row_sum4(float p[4], int gpr) {
-  for (int off = gpr >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      p[c] += __shfl_xor_sync(0xffffffffu, p[c], off);
-  }
-}
-
-// Launch geometry shared by the four kernels: blockIdx.y is the slab,
+// Launch geometry of the two forward kernels: blockIdx.y is the slab,
 // blockIdx.x * kThreads + threadIdx.x the group within the slab's N rows.
 constexpr int kThreads = 256;
 

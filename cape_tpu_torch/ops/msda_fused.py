@@ -27,7 +27,11 @@ with zero weight gets its true `dw4`).
   (`:231`, `:249`). All four are bound by bytes; see the sources for the
   designs. They take fp32 and bf16, `Dh / 4` a power of two up to 32
   (Dh = 32 is the model's), and a slab whose batch stride is a whole
-  number of rows (a level slice of the folded value needs no copy).
+  number of rows (a level slice of the folded value needs no copy). The
+  backwards are row-list kernels (`csrc/rowlist.cuh`) tiled by
+  `sample_bwd_plan`: one launch writes `dslab` and `dw4` whole in the
+  slab's dtype, with no fp32 buffer, zero fill or cast, and the same bits
+  every run.
 - CPU tensors: `*_plain` and `*_bwd_plain`, the same functions in plain
   PyTorch. The backward is the explicit formula (a masked `index_add_`
   into fp32 and a row dot), the one the kernels are held against on the
@@ -45,11 +49,13 @@ bf16 the two differ by bf16 roundings of single terms.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from .gather import SHARED_PER_BLOCK, _SHARED_TWO_BLOCKS, scatter_plan
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -123,6 +129,96 @@ def quadfused_level_sample_bwd_plain(
         dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward: `(dslab, dw4)`."""
     return _sample_bwd_plain(slab, gi, w4, None, dout)
+
+
+# -- the backwards' tiling --------------------------------------------------
+#: list entries a group of lanes should have to itself before a row is
+#: given more groups
+_ENTRIES_PER_GROUP = 8
+
+
+class SampleBwdPlan(NamedTuple):
+    """How `csrc/rowlist.cuh` tiles one backward call: `tiles` tiles of
+    `rows_per_tile` output rows cover the slab; a cluster of `cluster`
+    blocks of `threads` threads works on each tile, the entries split
+    among its blocks, each block listing up to `chain` entries a pass by
+    key; `use_tile` is 1 where the sums of several blocks or passes meet
+    in an fp32 tile in shared memory; `shared_bytes` per block; `split`
+    groups of lanes work on one output row."""
+    rows_per_tile: int
+    tiles: int
+    cluster: int
+    chain: int
+    use_tile: int
+    threads: int
+    shared_bytes: int
+    split: int
+
+
+def _list_bytes(rows: int, chain: int, C: int, use_tile: bool, halo: int,
+                threads: int) -> int:
+    """Shared memory of a block (`shared_need` in `csrc/rowlist.cuh`): the
+    counters and the warps' totals (144 bytes), a 2-byte count per key (the
+    rows and the halo) and warp, padded to 16 bytes, 2 bytes a slot for
+    the slots each warp keeps (rounded up to whole rounds of the block)
+    and 2 for the list, the fp32 tile where there is one, and a row of C
+    fp32 values a warp (its share of a row that all the warps take)."""
+    warps = threads // 32
+    return 144 + 2 * (-(-warps * (rows + halo) // 8) * 8) + 2 * (
+        -(-chain // threads) * threads) + 2 * chain + (
+        4 * rows * C if use_tile else 0) + 4 * warps * C
+
+
+@functools.lru_cache(maxsize=256)
+def sample_bwd_plan(B: int, n: int, N: int, C: int, halo: int,
+                    corners: int) -> SampleBwdPlan:
+    """The tiling of a level sample's backward for `B` slabs of `n` output
+    rows of `C` values and `N` entries a slab, each reaching `corners`
+    rows (4 for the raw slab, whose blocks also list the `halo = Wl + 1`
+    cells below their tile; 1 for the quad slab, `C = 4 * Dh`).
+
+    The policy is `quad_scatter`'s (`ops.gather.scatter_plan`: tiles that
+    fill the card two blocks to an SM, the entries split over a cluster
+    where rows are few, passes where a block's share is long); tiles are
+    then cut shorter where the lists and the halo need it to fit shared
+    memory. `split`: one group of lanes a row where a block's rows get
+    fewer than `2 * _ENTRIES_PER_GROUP` list entries on average (about 5
+    at the encoder's quad level 0), more groups, up to a warp, where they
+    get more (21 at its raw level 0, hundreds at levels 2-3)."""
+    if min(B, n, C) < 1 or N < 0 or halo < 0 or corners < 1:
+        raise ValueError(f"sample_bwd_plan: B={B}, n={n}, N={N}, C={C}, "
+                         f"halo={halo}, corners={corners}")
+    base = scatter_plan(B, n, N, C)
+    threads, rows, cluster = base.threads, base.rows_per_tile, base.cluster
+    chain, use_tile = base.chain, bool(base.use_tile)
+    # two blocks to an SM where the scatter has them
+    budget = _SHARED_TWO_BLOCKS \
+        if base.shared_bytes <= _SHARED_TWO_BLOCKS else SHARED_PER_BLOCK
+
+    def fit(budget):
+        """The most rows whose counts (and tile) fit beside the lists."""
+        return (budget - _list_bytes(0, chain, C, use_tile, halo, threads)
+                - 14) // (threads // 16 + (4 * C if use_tile else 0))
+
+    # then one block to an SM; then shorter lists (more passes)
+    if fit(budget) < 1:
+        budget = SHARED_PER_BLOCK
+    if fit(budget) < 1 and chain > 4096:
+        chain, use_tile = 4096, True
+    if fit(budget) < 1:
+        raise ValueError(f"a row of {C} values with a halo of {halo} rows "
+                         "does not fit a block's shared memory")
+    rows = min(rows, fit(budget))
+    tiles = -(-n // rows)
+    rows = -(-n // tiles)                      # evened out over the slab
+    tiles = -(-n // rows)
+    per_row = N * corners // max(1, n * cluster)
+    split = 1
+    while split < 32 and 2 * split * _ENTRIES_PER_GROUP <= per_row:
+        split *= 2
+    return SampleBwdPlan(rows, tiles, cluster, chain, int(use_tile), threads,
+                         _list_bytes(rows, chain, C, use_tile, halo, threads),
+                         split)
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -216,24 +312,36 @@ def _sample(public: Callable, slab, gi, w4, Wl):
 
 
 def _sample_bwd(public: Callable, slab, gi, w4, Wl, dout):
-    """Backward `(dslab, dw4)`: kernel on CUDA tensors (atomics into a
-    zeroed fp32 buffer, then one cast), plain version on CPU tensors."""
+    """Backward `(dslab, dw4)`: kernel on CUDA tensors (one launch that
+    writes both outputs whole, in the slab's dtype), plain version on CPU
+    tensors."""
     what = public.__name__ + " backward"
     if slab.device.type == "cpu":
         return _sample_bwd_plain(slab, gi, w4, Wl, dout)
     shape = slab.shape
     slab, (gi, w4, dout), ints, stride = _kernel_operands(
         what, slab, gi, w4, Wl, dout)
-    dslab = torch.zeros(shape, dtype=torch.float32, device=slab.device)
+    BH, rows, N, Dh = ints[0], ints[1], ints[2], ints[-1]
+    dslab = torch.empty(shape, dtype=slab.dtype, device=slab.device)
+    if BH == 0 or rows == 0:
+        # no row to own: every corner is out of range
+        return dslab, torch.zeros_like(w4)
+    try:
+        plan = sample_bwd_plan(BH, rows, N, shape[2],
+                               0 if Wl is None else Wl + 1,
+                               1 if Wl is None else 4)
+    except ValueError as e:
+        raise ValueError(f"{what} kernel: slab {tuple(shape)}, N = {N}: "
+                         f"{e}") from None
     dw4 = torch.empty_like(w4)
     name = "fused_bwd" if Wl is not None else "quadfused_bwd"
-    _raise_on(_fn(name, 6, len(ints))(
+    _raise_on(_fn(name, 6, len(ints) + len(plan))(
         slab.data_ptr(), gi.data_ptr(), w4.data_ptr(), dout.data_ptr(),
-        dslab.data_ptr(), dw4.data_ptr(), *ints, stride,
+        dslab.data_ptr(), dw4.data_ptr(), *ints, *plan, stride,
         _DTYPE_CODE[slab.dtype], torch.cuda.current_stream().cuda_stream),
         what)
     public.bwd_launches += 1
-    return dslab.to(slab.dtype), dw4
+    return dslab, dw4
 
 
 class _LevelSample(torch.autograd.Function):

@@ -13,7 +13,10 @@ and exits non-zero at the first phase that fails:
    (`quad_gather`, `quad_scatter`) are checked and timed at all four
    levels of the encoder's and the decoder's shapes and at the decode
    step's, with uniform indices and with indices drawn as the model draws
-   them;
+   them; the two fused backwards at the encoder's four levels and the
+   decoder's level 0, the same two index sets, with dw4 exactly 0 at
+   every corner outside the slab and a strided slab bit-equal to its
+   copy;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
@@ -595,25 +598,91 @@ def _sample_bound_ms(torch, slab, gi, w4, Wl, backward):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
 
 
+def _off_range(torch, gi, Wl, rows):
+    """(BH, N, 4) mask of the corners outside the slab: the raw slab's
+    corners gi + shift_c outside [0, rows), or every corner of a quad row
+    gi outside [0, rows)."""
+    g = gi.long()[..., None]
+    if Wl is None:
+        return ((g < 0) | (g >= rows)).expand(-1, -1, 4)
+    t = g + torch.tensor([0, 1, Wl, Wl + 1], device=gi.device)
+    return (t < 0) | (t >= rows)
+
+
+@contextlib.contextmanager
+def _forced_plan(mf, plan):
+    """The level samples' backwards tiled by `plan` instead of their own."""
+    own = mf.sample_bwd_plan
+    mf.sample_bwd_plan = lambda *args: plan
+    try:
+        yield
+    finally:
+        mf.sample_bwd_plan = own
+
+
+def _check_sample_bwd(torch, mf, label, slab, gi, w4, dout, Wl):
+    """One backward (`*_level_sample_bwd`, the kernel) against its plain
+    version: dslab within its tolerance, dw4 within its, dw4 exactly 0 at
+    every corner outside the slab, and a strided raw slab bit-equal to its
+    contiguous copy (the row lists are summed in the same order every run).
+    Returns the largest errors (dslab, dw4)."""
+    quad = Wl is None
+    kind = "quadfused" if quad else "fused"
+    lvl = () if quad else (Wl,)
+    bwd = mf.quadfused_level_sample_bwd if quad else mf.fused_level_sample_bwd
+    plain = mf.quadfused_level_sample_bwd_plain if quad \
+        else mf.fused_level_sample_bwd_plain
+    dslab, dw4 = bwd(slab, gi, w4, *lvl, dout)
+    same = bwd(slab.contiguous(), gi, w4, *lvl, dout)
+    want = plain(slab, gi, w4, *lvl, dout)
+    # the summed magnitudes of the terms that meet in a dslab value
+    mass = plain(slab, gi, w4.float().abs(), *lvl, dout.float().abs())[0]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip((dslab, dw4), same)),
+          f"{kind} backward: a strided slab and its copy differ ({label})")
+    off = _off_range(torch, gi, Wl, slab.shape[1])
+    check(not dw4[off].any(), f"{kind} backward: dw4 of a corner outside "
+          f"the slab is not 0 ({label})")
+    # the same terms summed in another order: a sum of T terms carries up
+    # to about 2^-23 of the sum of their magnitudes (fp32); bf16 adds one
+    # rounding of the result (one ulp where a sum lands near a boundary)
+    rtol = 1e-5 if slab.dtype == torch.float32 else 2 ** -7
+    errs = []
+    for name, got, ref, extra in (("dslab", dslab, want[0], 2 ** -23 * mass),
+                                  ("dw4", dw4, want[1], 0.0)):
+        check(got.dtype == slab.dtype and got.shape == ref.shape,
+              f"{kind} {name}: wrong dtype or shape ({label})")
+        diff = (got.float() - ref.float()).abs()
+        worst = (diff / (1e-5 + rtol * ref.float().abs() + extra)).max().item()
+        e = diff.max().item()
+        print(f"{kind} {name} [{label}, {slab.dtype}]: max abs err {e:.3e}, "
+              f"{worst:.3f} of the tolerance (1e-05 abs + {rtol:g} rel"
+              + (" + 2^-23 of the summed magnitudes)" if name == "dslab"
+                 else ")"), flush=True)
+        check(worst <= 1.0, f"{kind} {name} differs from plain ({label}, "
+              f"{slab.dtype}): {worst:.3f} of the tolerance")
+        errs.append(e)
+    return errs
+
+
 def _fused_kernels(torch, g, card):
     """The four fused level-sample kernels (fused.cu, quadfused.cu) against
-    their plain versions, forward and backward, fp32 and bf16, at encoder
-    level 0, at the smallest level (the most rows per slab row), at the
-    teacher-forced decoder's and the decode step's row counts; then their
-    times at encoder level 0 (the kernels line), at the smallest level and
-    at the decoder shape."""
+    their plain versions, fp32 and bf16: forward and backward (through
+    autograd) at encoder level 0, at the smallest level (the most rows per
+    slab row), at the teacher-forced decoder's and the decode step's row
+    counts; the backwards alone also at encoder levels 1 and 2, a
+    non-square level, Dh = 16, a forced cluster and two passes. Then their
+    times in bf16: the forwards at encoder levels 0 and 3 and the decoder,
+    the backwards at the four encoder levels and decoder level 0 with
+    uniform and with model-like indices."""
+    from cape_tpu_torch.models.cape import level_shapes
     from cape_tpu_torch.ops import msda_fused as mf
 
     Dh, cases = 32, SAMPLE_CASES
-    # fp32: the same terms in another order (fused multiply-adds; atomics
-    # whose order varies). A dslab row at level 3 sums ~1,400 terms of
-    # size ~1, so its partial sums near 30 each carry ~2e-6: hence the
-    # larger absolute term there. bf16: that, then one rounding of the
-    # result (one bf16 ulp where a sum lands near a boundary).
-    tols = {torch.float32: {"out": (1e-5, 1e-5), "dw4": (1e-5, 1e-5),
-                            "dslab": (5e-4, 1e-5)},
-            torch.bfloat16: {"out": (1e-5, 2 ** -7), "dw4": (1e-5, 2 ** -7),
-                             "dslab": (5e-4, 2 ** -7)}}
+    # forward: the same terms in another order (fused multiply-adds), then
+    # one rounding in bf16 (one ulp where a sum lands near a boundary); the
+    # backward's tolerances are `_check_sample_bwd`'s
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
     errs = {}
     for quad in (False, True):
         kind = "quadfused" if quad else "fused"
@@ -631,77 +700,141 @@ def _fused_kernels(torch, g, card):
                 dslab, dw4 = torch.autograd.grad(out, (s_g, w_g), dout)
                 if quad:
                     want = mf.quadfused_level_sample_plain(slab, gi, w4)
-                    want_b = mf.quadfused_level_sample_bwd_plain(
-                        slab, gi, w4, dout)
+                    want_b = mf.quadfused_level_sample_bwd(slab, gi, w4,
+                                                           dout)
                 else:
                     want = mf.fused_level_sample_plain(slab, gi, w4, Wl)
-                    want_b = mf.fused_level_sample_bwd_plain(
-                        slab, gi, w4, Wl, dout)
+                    want_b = mf.fused_level_sample_bwd(slab, gi, w4, Wl,
+                                                       dout)
                     same = fwd(slab.contiguous(), gi, w4, Wl)
                     check(torch.equal(same, out),
                           "fused_fwd: a strided slab and its copy differ")
                 torch.cuda.synchronize()
                 check(not out[:, 2].any() and not dw4[:, 2].any(),
                       f"{kind}: an off-range row is not zero ({label})")
-                for name, got, ref in (("out", out, want),
-                                       ("dslab", dslab, want_b[0]),
-                                       ("dw4", dw4, want_b[1])):
-                    check(got.dtype == dtype and got.shape == ref.shape,
-                          f"{kind} {name}: wrong dtype or shape")
-                    e = (got.float() - ref.float()).abs().max().item()
-                    atol, rtol = tols[dtype][name]
-                    print(f"{kind} {name} [{label}, {dtype}]: max abs err "
-                          f"{e:.3e} (tolerance {atol:g} abs + {rtol:g} rel)",
-                          flush=True)
-                    torch.testing.assert_close(got.float(), ref.float(),
-                                               atol=atol, rtol=rtol)
-                    key = ("fwd" if name == "out" else "bwd", dtype)
-                    errs[kind][key] = max(errs[kind][key], e)
+                # autograd's backward is the kernel's
+                check(torch.equal(dslab, want_b[0])
+                      and torch.equal(dw4, want_b[1]),
+                      f"{kind}: autograd's backward is not the kernel's")
+                check(out.dtype == dtype and out.shape == want.shape,
+                      f"{kind} out: wrong dtype or shape")
+                e = (out.float() - want.float()).abs().max().item()
+                atol, rtol = tols[dtype]
+                print(f"{kind} out [{label}, {dtype}]: max abs err {e:.3e} "
+                      f"(tolerance {atol:g} abs + {rtol:g} rel)", flush=True)
+                torch.testing.assert_close(out.float(), want.float(),
+                                           atol=atol, rtol=rtol)
+                errs[kind]["fwd", dtype] = max(errs[kind]["fwd", dtype], e)
+                e = max(_check_sample_bwd(torch, mf, label, slab, gi, w4,
+                                          dout, None if quad else Wl))
+                errs[kind]["bwd", dtype] = max(errs[kind]["bwd", dtype], e)
                 del out, dslab, dw4, want, want_b, s_g, w_g
 
-    # times in bf16 with the path's own index range: the forward at the
-    # serving batch (64 slabs) for the encoder and the training batch (32)
-    # for the teacher-forced decoder, the backward at the training batch
+    # the backwards alone: (BH, Hl, Wl, N, Dh, forced plan or None)
+    bwd_cases = {"encoder level 1": (32, 32, 32, 21760, Dh, None),
+                 "encoder level 2": (32, 16, 16, 21760, Dh, None),
+                 "non-square 40 x 56": (32, 40, 56, 5000, Dh, None),
+                 "Dh = 16": (32, 16, 16, 5000, 16, None),
+                 "forced cluster of 8": (5, 16, 16, 5003, Dh, "cluster"),
+                 "two passes": (1, 5, 8, 200001, Dh, None)}
+    for quad in (False, True):
+        kind = "quadfused" if quad else "fused"
+        for label, (BH, Hl, Wl, N, dh, force) in bwd_cases.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                slab, gi, w4, dout = _sample_inputs(
+                    torch, g, BH, Hl, Wl, N, dh, dtype, quad, awkward=True)
+                rows, width = slab.shape[1], slab.shape[2]
+                halo = 0 if quad else Wl + 1
+                plan = mf.sample_bwd_plan(BH, rows, N, width, halo,
+                                          1 if quad else 4)
+                if force == "cluster":
+                    # 8 blocks a tile, tiles of 24 rows, 2 groups a row
+                    chain = -(-(-(-N // 32)) // 8) * 32
+                    plan = mf.SampleBwdPlan(
+                        24, -(-rows // 24), 8, chain, 1, 512,
+                        mf._list_bytes(24, chain, width, True, halo, 512), 2)
+                with _forced_plan(mf, plan):
+                    e = max(_check_sample_bwd(torch, mf, f"{label}; plan "
+                                              f"{tuple(plan)}", slab, gi, w4,
+                                              dout, None if quad else Wl))
+                errs[kind]["bwd", dtype] = max(errs[kind]["bwd", dtype], e)
+                del slab, gi, w4, dout
+
     entries = []
     for quad in (False, True):
         kind = "quadfused" if quad else "fused"
         times = {"fwd": {}, "bwd": {}}
-        for label, BH_f in (("encoder level 0", 64), ("encoder level 3", 64),
-                            ("decoder level 0", 32)):
+        # forwards in bf16 with the path's own index range: the serving
+        # batch (64 slabs) for the encoder, the training batch (32) for the
+        # teacher-forced decoder
+        for label, BH in (("encoder level 0", 64), ("encoder level 3", 64),
+                          ("decoder level 0", 32)):
             Hl, Wl, N = cases[label]
-            for key, BH in (("fwd", BH_f), ("bwd", 32)):
-                slab, gi, w4, dout = _sample_inputs(
-                    torch, g, BH, Hl, Wl, N, Dh, torch.bfloat16, quad,
-                    awkward=False)
-                lvl = () if quad else (Wl,)
-                if key == "fwd":
-                    k_fn = mf.quadfused_level_sample if quad \
-                        else mf.fused_level_sample
-                    p_fn = mf.quadfused_level_sample_plain if quad \
-                        else mf.fused_level_sample_plain
-                    args = (slab, gi, w4, *lvl)
-                else:
-                    k_fn = mf.quadfused_level_sample_bwd if quad \
-                        else mf.fused_level_sample_bwd
-                    p_fn = mf.quadfused_level_sample_bwd_plain if quad \
-                        else mf.fused_level_sample_bwd_plain
-                    args = (slab, gi, w4, *lvl, dout)
-                b_ms, o_ms = _sample_bound_ms(
-                    torch, slab, gi, w4, None if quad else Wl, key == "bwd")
-                with torch.no_grad():
-                    times[key][label] = {
-                        "ms": cuda_ms(torch, lambda: k_fn(*args)),
-                        "device_ms": device_ms(torch, lambda: k_fn(*args)),
-                        "plain_ms": cuda_ms(torch, lambda: p_fn(*args),
-                                            iters=5, warmup=1),
-                        "bytes_ms": b_ms, "ops_ms": o_ms,
-                        "shape": f"slab {tuple(slab.shape)} bf16, gi "
-                                 f"{tuple(gi.shape)}"}
-                print(f"{kind}_{key} [{label}] {times[key][label]} ({card})",
-                      flush=True)
+            slab, gi, w4, _ = _sample_inputs(
+                torch, g, BH, Hl, Wl, N, Dh, torch.bfloat16, quad,
+                awkward=False)
+            lvl = () if quad else (Wl,)
+            k_fn = mf.quadfused_level_sample if quad \
+                else mf.fused_level_sample
+            p_fn = mf.quadfused_level_sample_plain if quad \
+                else mf.fused_level_sample_plain
+            args = (slab, gi, w4, *lvl)
+            b_ms, o_ms = _sample_bound_ms(torch, slab, gi, w4,
+                                          None if quad else Wl, False)
+            with torch.no_grad():
+                times["fwd"][label] = {
+                    "ms": cuda_ms(torch, lambda: k_fn(*args)),
+                    "device_ms": device_ms(torch, lambda: k_fn(*args)),
+                    "plain_ms": cuda_ms(torch, lambda: p_fn(*args), iters=5,
+                                        warmup=1),
+                    "bytes_ms": b_ms, "ops_ms": o_ms,
+                    "shape": f"slab {tuple(slab.shape)} bf16, gi "
+                             f"{tuple(gi.shape)}"}
+            print(f"{kind}_fwd [{label}] {times['fwd'][label]} ({card})",
+                  flush=True)
+        # backwards at the training batch (32 slabs), every encoder level
+        # and decoder level 0, uniform indices and the model's (quad bases
+        # of `_quad_bases_and_weights`; the raw slab's cell is the base
+        # - (Wl + 1), as `ops/msda.py` computes it)
+        shapes = level_shapes(512, 4)
+        for label, _, ikind, gq in _row_cases(torch, g, shapes, 4, 8, 4,
+                                              False):
+            if label.startswith("decoder") and label != "decoder level 0":
+                continue
+            Hl, Wl = shapes[int(label[-1])]
+            N = gq.shape[1]
+            slab, _, w4, dout = _sample_inputs(
+                torch, g, 32, Hl, Wl, N, Dh, torch.bfloat16, quad,
+                awkward=False)
+            gi = gq if quad else (gq - (Wl + 1)).contiguous()
+            lvl = () if quad else (Wl,)
+            k_fn = mf.quadfused_level_sample_bwd if quad \
+                else mf.fused_level_sample_bwd
+            p_fn = mf.quadfused_level_sample_bwd_plain if quad \
+                else mf.fused_level_sample_bwd_plain
+            args = (slab, gi, w4, *lvl, dout)
+            b_ms, o_ms = _sample_bound_ms(torch, slab, gi, w4,
+                                          None if quad else Wl, True)
+            t = {"shape": f"slab {tuple(slab.shape)} bf16, gi "
+                          f"{tuple(gi.shape)}",
+                 "inputs": "L2-warm" if b_ms * 1e-3 * HBM_BYTES_PER_S
+                 < L2_BYTES else "above the L2",
+                 "plan": tuple(mf.sample_bwd_plan(
+                     32, slab.shape[1], N, slab.shape[2],
+                     0 if quad else Wl + 1, 1 if quad else 4))}
+            t["ms"], t["device_ms"] = both_ms(torch, lambda: k_fn(*args))
+            t["plain_ms"] = cuda_ms(torch, lambda: p_fn(*args), iters=5,
+                                    warmup=1)
+            t["bytes_ms"], t["ops_ms"] = b_ms, o_ms
+            t["bound_share"] = max(b_ms, o_ms) / t["device_ms"]
+            times["bwd"][label, ikind] = t
+            print(f"{kind}_bwd [{label}, {ikind} indices] {json.dumps(t)} "
+                  f"({card})", flush=True)
+            del slab, w4, dout, gi
         line = {"fused": (88, 99), "quadfused": (231, 249)}[kind]
         for key, at in zip(("fwd", "bwd"), line):
-            t = times[key]["encoder level 0"]
+            t = times[key]["encoder level 0"] if key == "fwd" \
+                else times[key]["encoder level 0", "uniform"]
             e32, e16 = (errs[kind][key, dt] for dt in tols)
             print(f"{kind}_{key}: largest error against plain over the "
                   f"cases above, fp32 {e32:.3e}, bf16 {e16:.3e}", flush=True)
