@@ -22,11 +22,24 @@
 // dslab and dw4 written once. Neither writes the (BH, N, 4 * Dh) gathered
 // rows that the quad-row path puts through device memory.
 //
-// Forward: one thread per group of 4 consecutive channels of an output
-// row (rows4.cuh), so Dh / 4 neighbouring lanes share a row: they read its
-// gi and w4 from the same address (one broadcast access), each corner as
-// Dh * elt contiguous bytes, and a warp writes 32 / (Dh / 4) whole
-// consecutive output rows. Sums are fp32 with one rounding at the store.
+// Forward: a thread per 16 bytes of an output row (8 bf16 or 4 fp32
+// values; 8 bytes where a bf16 row is), the `units` lanes of a row
+// neighbours, rows of all slabs in one flat range: a warp reads each
+// corner row as whole 16-byte pieces and stores 32 / units whole
+// consecutive output rows, and the decode step's few rows are one short
+// launch. What bounds it, measured with throwaway variants
+// (`scripts/torch_sample_fwd_sweep.py --variants`; H100 SXM, 700 W,
+// bf16, 64 slabs of 21,760 rows): with 8 bytes a thread, reading gi and
+// w4 and writing the output, without any gather, took 0.046 ms, longer
+// than this kernel with its gathers at the smallest level (0.043); the
+// write alone takes 0.029. So the short chain of each thread (gi and w4,
+// the corners, the store) sets the pace, and 16-byte lanes halve the
+// chains. Taking 2 or 4 rows a thread, their loads issued together and
+// the next rows' gi and w4 loaded ahead, on a grid that walks the rows,
+// measured 8-22% slower: the registers it needs cost the warps that hide
+// the same latency. The output, the largest array, is stored with a
+// streaming hint so that it does not push the slab out of L2. Sums are
+// fp32, corners 0-3 in that order, with one rounding at the store.
 // Backward: the row lists of rowlist.cuh, keyed by CELL: a block owns a
 // tile of raw rows [s0, s1) and lists each entry whose cell gi[r] lies in
 // [s0 - Wl - 1, s1), the tile and a halo of Wl + 1 cells (an entry whose
@@ -52,29 +65,42 @@ using namespace rows4;
 
 namespace {
 
-template <bool kBf16>
-__global__ void fused_fwd_kernel(const void* __restrict__ slab,
-                                 const int* __restrict__ gi,
-                                 const void* __restrict__ w4,
-                                 void* __restrict__ out, int HW, int N,
-                                 int Wl, int lg, long long slab_bs) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;  // group in the slab
-  if (i >= (N << lg)) return;
-  const long long b = blockIdx.y;
-  const long long r = b * N + (i >> lg);
-  const int q = i & ((1 << lg) - 1);
-  const long long base = __ldg(gi + r);
-  const float4 w = load4<kBf16>(w4, r);
-  const float wc[4] = {w.x, w.y, w.z, w.w};
+// Forward: rows [0, R) of all slabs (R = BH * N), row r of slab r / N;
+// lane u of row r is thread (r << lg) + u of the grid.
+template <bool kBf16, int kBytes>
+__global__ void __launch_bounds__(rowlist::kThreads)
+fused_fwd_kernel(const void* __restrict__ slab, const int* __restrict__ gi,
+                 const void* __restrict__ w4, void* __restrict__ out, int HW,
+                 int N, int Wl, int lg, int R, long long slab_bs) {
+  using U = rowlist::Unit<kBf16, kBytes>;
+  using Raw = typename U::Raw;
+  constexpr int V = U::kVals;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = i >> lg, u = i & ((1 << lg) - 1);
+  if (r >= R) return;
+  const int g = __ldg(gi + r);
+  const float4 w = rows4::load4<kBf16>(w4, r);
+  const Raw* sb = reinterpret_cast<const Raw*>(slab) +
+                  ((long long)(r / N) * slab_bs << lg) + u;
   const int shift[4] = {0, 1, Wl, Wl + 1};
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  Raw v[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const long long idx = base + shift[c];
-    if (idx < 0 || idx >= HW) continue;
-    fma4(acc, wc[c], load4<kBf16>(slab, ((b * slab_bs + idx) << lg) + q));
+    const long long idx = (long long)g + shift[c];
+    v[c] = idx >= 0 && idx < HW ? __ldg(sb + (idx << lg)) : U::zero();
   }
-  store4<kBf16>(out, (r << lg) + q, acc);
+  const float wc[4] = {w.x, w.y, w.z, w.w};
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float x[V];
+    U::unpack(v[c], x);
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] += wc[c] * x[k];
+  }
+  __stcs(reinterpret_cast<Raw*>(out) + i, U::pack(acc));
 }
 
 // The backward on cell lists (rowlist.cuh): keys are cells, the tile's
@@ -207,25 +233,38 @@ cudaError_t bwd(const rowlist::Plan& p, int BH, cudaStream_t stream,
 // (dtype 1), slab b starting `slab_bs` ROWS after slab b - 1 (HW for a
 // contiguous array); gi (BH, N) int32; w4 (BH, N, 4) and out (BH, N, Dh)
 // contiguous, in the slab's dtype. Everything 16-byte aligned; Dh / 4 a
-// power of two up to 32; BH at most 65535. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments it does not take.
+// power of two up to 32. `units` lanes a row, `threads` a block and
+// `blocks` are the plan's (`ops.msda_fused.sample_fwd_plan`). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
+// take.
 extern "C" int fused_fwd_launch(const void* slab, const void* gi,
                                 const void* w4, void* out, int BH, int HW,
-                                int N, int Wl, int Dh, long long slab_bs,
-                                int dtype, void* stream) {
-  int lg, err;
-  const dim3 grid = launch_grid(BH, N, Dh, dtype, &lg, &err);
-  if (err) return err;
-  if (grid.x > 0 && grid.y > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 1) {
-      fused_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
-          slab, (const int*)gi, w4, out, HW, N, Wl, lg, slab_bs);
-    } else {
-      fused_fwd_kernel<false><<<grid, kThreads, 0, s>>>(
-          slab, (const int*)gi, w4, out, HW, N, Wl, lg, slab_bs);
-    }
-  }
+                                int N, int Wl, int Dh, int units, int threads,
+                                int blocks, long long slab_bs, int dtype,
+                                void* stream) {
+  const int elt = dtype == 1 ? 2 : 4;
+  const int bytes = (Dh * elt) % 16 == 0 ? 16 : 8;   // a lane's unit
+  int lg = 0;
+  while (lg < 5 && (1 << lg) < units) ++lg;
+  const long long R = (long long)BH * N;
+  if ((dtype != 0 && dtype != 1) || log2_groups(Dh) < 0 || BH < 0 ||
+      N < 0 || HW < 0 || Wl < 1 || Dh * elt != units * bytes ||
+      (1 << lg) != units || threads > rowlist::kThreads || threads < 32 ||
+      threads % 32 || blocks < 0 || (long long)blocks * threads < R * units ||
+      (long long)blocks * threads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;   // lane indices are 32-bit
+  if (R == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)R;
+  if (dtype == 1 && bytes == 8)
+    fused_fwd_kernel<true, 8><<<blocks, threads, 0, s>>>(
+        slab, (const int*)gi, w4, out, HW, N, Wl, lg, n, slab_bs);
+  else if (dtype == 1)
+    fused_fwd_kernel<true, 16><<<blocks, threads, 0, s>>>(
+        slab, (const int*)gi, w4, out, HW, N, Wl, lg, n, slab_bs);
+  else
+    fused_fwd_kernel<false, 16><<<blocks, threads, 0, s>>>(
+        slab, (const int*)gi, w4, out, HW, N, Wl, lg, n, slab_bs);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
-// Shared by the forward kernels of fused.cu and quadfused.cu: a thread's
-// unit of work is a group of 4 consecutive values of a row, moved in one
-// 8-byte (bf16) or 16-byte (fp32) access and held as fp32 in registers.
-// Group index `i` counts groups from the start of the array, so the array
-// must be 16-byte aligned and every row a whole number of groups.
+// The forward kernel of quadfused.cu: a thread's unit of work is a group
+// of 4 consecutive values of a row, moved in one 8-byte (bf16) or 16-byte
+// (fp32) access and held as fp32 in registers. Group index `i` counts
+// groups from the start of the array, so the array must be 16-byte
+// aligned and every row a whole number of groups. fused.cu's forward
+// reads its w4 rows (4 values) with `load4` and checks Dh with
+// `log2_groups`.
 
 #pragma once
 

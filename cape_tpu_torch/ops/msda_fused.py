@@ -28,6 +28,8 @@ with zero weight gets its true `dw4`).
   designs. They take fp32 and bf16, `Dh / 4` a power of two up to 32
   (Dh = 32 is the model's), and a slab whose batch stride is a whole
   number of rows (a level slice of the folded value needs no copy). The
+  raw slab's forward takes a thread per 16 bytes of an output row, its
+  launch worked out by `sample_fwd_plan` (pure Python). The
   backwards are row-list kernels (`csrc/rowlist.cuh`) tiled by
   `sample_bwd_plan`: one launch writes `dslab` and `dw4` whole in the
   slab's dtype, with no fp32 buffer, zero fill or cast, and the same bits
@@ -221,6 +223,42 @@ def sample_bwd_plan(B: int, n: int, N: int, C: int, halo: int,
                          split)
 
 
+# -- the forward's launch -----------------------------------------------------
+#: threads of a block of the forward
+_FWD_THREADS = 256
+
+
+class SampleFwdPlan(NamedTuple):
+    """How `csrc/fused.cu`'s forward covers the `BH * N` output rows: a
+    row is `units` lanes of `unit_bytes` (16, or 8 where a bf16 row is 8
+    bytes), lane u of row r is thread `r * units + u` of the grid, and
+    `blocks` blocks of `threads` threads cover the rows."""
+    units: int
+    unit_bytes: int
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def sample_fwd_plan(BH: int, N: int, Dh: int, elt: int) -> SampleFwdPlan:
+    """The forward's launch for `BH` slabs of `N` rows of `Dh` values of
+    `elt` bytes. Dh / 4 must be a power of two up to 32 and the lanes
+    fewer than 2^31 (ValueError otherwise)."""
+    groups = Dh // 4
+    if Dh % 4 or groups < 1 or groups & (groups - 1) or groups > 32 \
+            or elt not in (2, 4) or BH < 0 or N < 0:
+        raise ValueError(f"sample_fwd_plan: BH={BH}, N={N}, Dh={Dh}, "
+                         f"elt={elt}")
+    row_bytes = Dh * elt
+    unit_bytes = 16 if row_bytes % 16 == 0 else 8
+    units = row_bytes // unit_bytes
+    blocks = -(-BH * N * units // _FWD_THREADS)
+    if blocks * _FWD_THREADS > 2 ** 31 - 1:
+        raise ValueError(f"sample_fwd_plan: {BH * N} rows of {units} lanes:"
+                         " lane indices past 32 bits")
+    return SampleFwdPlan(units, unit_bytes, _FWD_THREADS, blocks)
+
+
 # -- kernel wrappers --------------------------------------------------------
 def _fn(name: str, n_ptr: int, n_int: int):
     """`<name>_launch` of its library: `n_ptr` pointers, `n_int` ints, the
@@ -302,6 +340,10 @@ def _sample(public: Callable, slab, gi, w4, Wl):
     slab, (gi, w4), ints, stride = _kernel_operands(what, slab, gi, w4, Wl)
     out = torch.empty((ints[0], ints[2], ints[-1]), dtype=slab.dtype,
                       device=slab.device)
+    if Wl is not None:
+        plan = sample_fwd_plan(ints[0], ints[2], ints[-1],
+                               slab.element_size())
+        ints += (plan.units, plan.threads, plan.blocks)
     name = "fused_fwd" if Wl is not None else "quadfused_fwd"
     _raise_on(_fn(name, 4, len(ints))(
         slab.data_ptr(), gi.data_ptr(), w4.data_ptr(), out.data_ptr(), *ints,

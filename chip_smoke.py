@@ -13,9 +13,13 @@ and exits non-zero at the first phase that fails:
    (`quad_gather`, `quad_scatter`) are checked and timed at all four
    levels of the encoder's and the decoder's shapes and at the decode
    step's, with uniform indices and with indices drawn as the model draws
-   them; the two fused backwards at the encoder's four levels and the
-   decoder's level 0, the same two index sets, with dw4 exactly 0 at
-   every corner outside the slab and a strided slab bit-equal to its
+   them; the whole-op `msda_forward` at the serving encoder, the training
+   encoder and the teacher-forced decoder with uniform and model-like
+   locations (and a profiler listing that one call is one kernel); the
+   fused forwards at the encoder's four levels, the decoder's level 0 and
+   the decode step; the two fused backwards at the encoder's four levels
+   and the decoder's level 0, the same two index sets, with dw4 exactly 0
+   at every corner outside the slab and a strided slab bit-equal to its
    copy;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
@@ -75,6 +79,13 @@ SAMPLE_CASES = {"encoder level 0": (64, 64, 21760),
                 "encoder level 3": (8, 8, 21760),
                 "decoder level 0": (64, 64, 800),
                 "decode step level 0": (64, 64, 4)}
+#: the forwards' timed cases, (label, slabs, (Hl, Wl, N)): the encoder's
+#: four levels and the decode step at the serving batch (64 slabs), the
+#: teacher-forced decoder at the training batch (32)
+FWD_TIMED = tuple(
+    [(f"encoder level {i}", 64, (64 >> i, 64 >> i, 21760)) for i in range(4)]
+    + [("decoder level 0", 32, SAMPLE_CASES["decoder level 0"]),
+       ("decode step level 0", 64, SAMPLE_CASES["decode step level 0"])])
 
 # COCO-style 17-keypoint prototype and skeleton (0-indexed)
 PROTO_17 = [
@@ -227,77 +238,32 @@ def _check_counts(counts, what, **want):
 def phase_kernels(torch, card):
     """Kernel vs plain at the serving path's shapes; returns the entries
     of the kernels line (launches filled in later)."""
-    from cape_tpu_torch.ops import msda_kernel
-    from cape_tpu_torch.models.cape import level_shapes
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    B, H, Dh, P = 8, 8, 32, 4
-    shapes = level_shapes(512, 4)
-    S = sum(h * w for h, w in shapes)
 
     gather_entry = _gather_kernel(torch, g, card)
-
-    # -- msda_forward: the encoder shape --------------------------------
-    L = len(shapes)
-    loc = torch.rand(B, S, H, L, P, 2, generator=g, device=dev) * 4.0 - 1.5
-    attn = torch.softmax(torch.randn(B, S, H, L * P, generator=g,
-                                     device=dev), -1).reshape(B, S, H, L, P)
-    m_err = 0.0
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-    for dtype in (torch.float32, torch.bfloat16):
-        value = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
-        idx, w, valid = msda_kernel.prepare_corners(shapes, loc,
-                                                    attn.to(dtype))
-        value_bh = value.transpose(1, 2).reshape(B * H, S, Dh).contiguous()
-        got = msda_kernel.msda_forward(value_bh, idx, w, valid)
-        want = msda_kernel.msda_forward_plain(value_bh, idx, w, valid)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        print(f"msda_forward {dtype}: max abs err {err:.3e} "
-              f"(tolerance {tol[dtype]:g} abs + rel)", flush=True)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   atol=tol[dtype], rtol=tol[dtype])
-        m_err = max(m_err, err)
-    K4 = idx.shape[-1]
-    # value rows read once (those the corners select), idx/w/valid read
-    # once, the (BH, Lq, Dh) output written once
-    nbytes = (gather_bytes(torch, value_bh, idx) - idx.numel() * 4
-              - idx.numel() * Dh * value_bh.element_size()
-              + idx.numel() * 12 + B * H * S * Dh * value_bh.element_size())
-    flops = 2 * B * H * S * K4 * Dh + B * H * S * K4
-    m = {"ms": cuda_ms(torch, lambda: msda_kernel.msda_forward(
-            value_bh, idx, w, valid)),
-         "device_ms": device_ms(torch, lambda: msda_kernel.msda_forward(
-            value_bh, idx, w, valid)),
-         "plain_ms": cuda_ms(torch, lambda: msda_kernel.msda_forward_plain(
-            value_bh, idx, w, valid), iters=5),
-         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-         "ops_ms": flops / FP32_FLOPS * 1e3}
-    print(f"msda_forward [encoder, value {tuple(value_bh.shape)} bf16, "
-          f"K4={K4}] {m} ({card})", flush=True)
-
+    msda_entry = _msda_kernel(torch, g, card)
     scatter = _scatter_kernel(torch, g, card)
     fused = _fused_kernels(torch, g, card)
-    return [
-        gather_entry,
-        {"name": "msda_forward", "route": "cuda",
-         "source": "cape_tpu_torch/ops/csrc/msda.cu",
-         "replaces": "cape_tpu/ops/msda_pallas.py:48",
-         "launches": 0, "max_abs_err": m_err, "ms": m["ms"],
-         "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
-         "bound_ms": max(m["bytes_ms"], m["ops_ms"]),
-         "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"] else "operations",
-         "library_ms": None},
-        scatter,
-    ] + fused
+    return [gather_entry, msda_entry, scatter] + fused
+
+
+def _model_locations(torch, g, shapes, B, H, P, refs):
+    """Sampling locations (B, Lq, H, L, P, 2) as the model draws them:
+    every query samples P points per head and level around its own
+    reference point `refs` (B, Lq, 2, normalised), here with a seeded
+    normal offset of 2 cells of the level."""
+    dev = refs.device
+    Lq, L = refs.shape[1], len(shapes)
+    cells = torch.tensor([[w, h] for h, w in shapes], device=dev,
+                         dtype=torch.float32)
+    off = torch.randn(B, Lq, H, L, P, 2, generator=g, device=dev) * 2.0
+    return refs[:, :, None, None, None, :] + off / cells[:, None, :]
 
 
 def _model_indices(torch, g, shapes, B, H, P, refs, prequad=False):
-    """Gather rows as the model draws them: every query samples P points
-    per head and level around its own reference point `refs` (B, Lq, 2,
-    normalised), here with a seeded normal offset of 2 cells of the level,
-    turned into quad-row indices by the port's own
+    """Gather rows as the model draws them (`_model_locations`), turned
+    into quad-row indices by the port's own
     `_quad_bases_and_weights`. Returns one `gi` (B*H, Lq*P) int32 per
     level, or with `prequad` the decode step's single `gi`
     (B*H, Lq*L*P) into the prepacked slab of all levels."""
@@ -306,10 +272,7 @@ def _model_indices(torch, g, shapes, B, H, P, refs, prequad=False):
 
     dev = refs.device
     Lq, L = refs.shape[1], len(shapes)
-    cells = torch.tensor([[w, h] for h, w in shapes], device=dev,
-                         dtype=torch.float32)
-    off = torch.randn(B, Lq, H, L, P, 2, generator=g, device=dev) * 2.0
-    loc = refs[:, :, None, None, None, :] + off / cells[:, None, :]
+    loc = _model_locations(torch, g, shapes, B, H, P, refs)
     attn = torch.full((B, Lq, H, L, P), 1.0 / (L * P), device=dev)
     bases = [base for _, base, _ in _quad_bases_and_weights(
         shapes, loc, attn, torch.float32)]           # each (B, Lq, H, P)
@@ -373,6 +336,143 @@ def _awkward(torch, gi, n, dups):
     gi[:, dups:dups + 4] = torch.tensor([-1, -n, n, n + 7], device=gi.device,
                                         dtype=torch.int32)
     return gi
+
+
+#: sites of the whole-op MSDA kernel at the flagship width, as (B, Lq):
+#: the serving encoder (a request of 8 images) and the training encoder
+#: (4 query images a micro-step), every cell of the 4 levels a query
+#: (Lq = None), and the teacher-forced decoder (4 images, 200 tokens)
+MSDA_CASES = {"serving encoder": (8, None), "training encoder": (4, None),
+              "teacher-forced decoder": (4, 200)}
+
+
+def _msda_inputs(torch, g, shapes, B, Lq, kind, dtype, H=8, Dh=32, P=4):
+    """(value, loc, attn) of one MSDA site on the card: value (B, S, H, Dh)
+    and the softmaxed attention weights in `dtype`; fp32 locations either
+    uniform in [-1.5, 2.5] (about 15 of 16 corners outside their level)
+    or drawn as the model draws them (`_model_locations`) around the
+    site's reference points: the encoder's cell centres (Lq = None), the
+    decoder's seeded points in [0, 1)."""
+    dev = torch.device("cuda")
+    S, L = sum(h * w for h, w in shapes), len(shapes)
+    refs = _encoder_refs(torch, shapes, B, dev) if Lq is None \
+        else torch.rand(B, Lq, 2, generator=g, device=dev)
+    Lq = refs.shape[1]
+    value = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    if kind == "uniform":
+        loc = torch.rand(B, Lq, H, L, P, 2, generator=g, device=dev) * 4.0 \
+            - 1.5
+    else:
+        loc = _model_locations(torch, g, shapes, B, H, P, refs)
+    attn = torch.softmax(torch.randn(B, Lq, H, L * P, generator=g,
+                                     device=dev), -1)
+    return value, loc, attn.reshape(B, Lq, H, L, P).to(dtype)
+
+
+def _msda_bound_ms(torch, value, shapes, loc, attn):
+    """The least time of the op on these inputs, whatever computes it: the
+    locations and attention weights read once, each distinct in-range
+    value row the corners select (one head's Dh values of one cell) read
+    once, the (B, Lq, H*Dh) output written once; against the fp32
+    multiply-adds of the in-range corners."""
+    from cape_tpu_torch.ops.msda_kernel import prepare_corners
+
+    B, S, H, Dh = value.shape
+    elt = value.element_size()
+    idx, _, valid = prepare_corners(shapes, loc, attn)
+    ok = valid > 0
+    rows = (torch.arange(B * H, device=idx.device)[:, None, None] * S
+            + idx)[ok]
+    nbytes = (loc.numel() * 4 + attn.numel() * elt
+              + torch.unique(rows).numel() * Dh * elt
+              + B * loc.shape[1] * H * Dh * elt)
+    flops = 2 * Dh * int(ok.sum().item())
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def _msda_kernel(torch, g, card):
+    """msda_forward (csrc/msda.cu) against its plain version at the three
+    sites of `MSDA_CASES`, uniform and model-like locations, fp32 and
+    bf16; a profiler listing of one `ms_deform_attn_pallas` call on the
+    card (one kernel, nothing else); then its times in bf16 at every site
+    and location set, with the same-work bound. Returns the entry of the
+    kernels line: the serving encoder with model-like locations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cape_tpu_torch.models.cape import level_shapes
+    from cape_tpu_torch.ops import msda_kernel as mk
+
+    shapes = level_shapes(512, 4)
+    # fp32: the same corners and weights as the plain version, bit for bit
+    # (the kernel rounds its corner math as PyTorch does), summed in
+    # another order; bf16: one rounding of those sums, one ulp apart where
+    # a sum lands near a boundary
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+    err, times = 0.0, {}
+    for site, (B, Lq) in MSDA_CASES.items():
+        for kind in ("uniform", "model"):
+            for dtype in tols:
+                value, loc, attn = _msda_inputs(torch, g, shapes, B, Lq, kind,
+                                                dtype)
+                got = mk.msda_forward(value, shapes, loc, attn)
+                want = mk.msda_forward_plain(value, shapes, loc, attn)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == want.shape,
+                      "msda_forward: wrong dtype or shape")
+                e = (got.float() - want.float()).abs().max().item()
+                atol, rtol = tols[dtype]
+                print(f"msda_forward [{site}, {kind} locations, {dtype}]: "
+                      f"max abs err {e:.3e} (tolerance {atol:g} abs + "
+                      f"{rtol:g} rel)", flush=True)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=atol, rtol=rtol)
+                err = max(err, e)
+                del got, want
+                if dtype != torch.bfloat16:
+                    continue
+                b_ms, o_ms = _msda_bound_ms(torch, value, shapes, loc, attn)
+                args = (value, shapes, loc, attn)
+                t = {"shape": f"value {tuple(value.shape)} bf16, loc "
+                              f"{tuple(loc.shape)}",
+                     "inputs": "L2-warm" if b_ms * 1e-3 * HBM_BYTES_PER_S
+                     < L2_BYTES else "above the L2"}
+                t["ms"], t["device_ms"] = both_ms(
+                    torch, lambda: mk.msda_forward(*args))
+                t["plain_ms"] = cuda_ms(
+                    torch, lambda: mk.msda_forward_plain(*args), iters=5,
+                    warmup=1)
+                t["bytes_ms"], t["ops_ms"] = b_ms, o_ms
+                t["bound_share"] = max(b_ms, o_ms) / t["device_ms"]
+                times[site, kind] = t
+                print(f"msda_forward [{site}, {kind} locations] "
+                      f"{json.dumps(t)} ({card})", flush=True)
+                del value, loc, attn, args
+
+    # one site is one launch on the card: no corner preparation, no
+    # transpose of the value or the output
+    value, loc, attn = _msda_inputs(torch, g, shapes, 4, 200, "model",
+                                    torch.bfloat16)
+    n0 = mk.msda_forward.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mk.ms_deform_attn_pallas(value, shapes, loc, attn)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = mk.msda_forward.launches - n0
+    print(f"ms_deform_attn_pallas on the card: {n} msda_forward launch, "
+          f"device events {names}", flush=True)
+    check(n == 1 and len(names) == 1 and "msda_forward_kernel" in names[0],
+          "ms_deform_attn_pallas is not one kernel launch on the card")
+    t = times["serving encoder", "model"]
+    return {"name": "msda_forward", "route": "cuda",
+            "source": "cape_tpu_torch/ops/csrc/msda.cu",
+            "replaces": "cape_tpu/ops/msda_pallas.py:48",
+            "launches": 0, "max_abs_err": err, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+            else "operations", "library_ms": None}
 
 
 def _gather_kernel(torch, g, card):
@@ -758,6 +858,27 @@ def _fused_kernels(torch, g, card):
                                               f"{tuple(plan)}", slab, gi, w4,
                                               dout, None if quad else Wl))
                 errs[kind]["bwd", dtype] = max(errs[kind]["bwd", dtype], e)
+                if not quad:
+                    # the forward's plan at these shapes too: other lane
+                    # widths (Dh = 16), rows a thread and ragged row counts
+                    out = mf.fused_level_sample(slab, gi, w4, Wl)
+                    same = mf.fused_level_sample(slab.contiguous(), gi, w4,
+                                                 Wl)
+                    want = mf.fused_level_sample_plain(slab, gi, w4, Wl)
+                    torch.cuda.synchronize()
+                    check(torch.equal(same, out),
+                          "fused_fwd: a strided slab and its copy differ")
+                    e = (out.float() - want.float()).abs().max().item()
+                    atol, rtol = tols[dtype]
+                    fplan = mf.sample_fwd_plan(BH, N, dh, slab.element_size())
+                    print(f"fused out [{label}, {dtype}; plan "
+                          f"{tuple(fplan)}]: max abs err {e:.3e} (tolerance "
+                          f"{atol:g} abs + {rtol:g} rel)", flush=True)
+                    torch.testing.assert_close(out.float(), want.float(),
+                                               atol=atol, rtol=rtol)
+                    errs[kind]["fwd", dtype] = max(errs[kind]["fwd", dtype],
+                                                   e)
+                    del out, same, want
                 del slab, gi, w4, dout
 
     entries = []
@@ -765,11 +886,9 @@ def _fused_kernels(torch, g, card):
         kind = "quadfused" if quad else "fused"
         times = {"fwd": {}, "bwd": {}}
         # forwards in bf16 with the path's own index range: the serving
-        # batch (64 slabs) for the encoder, the training batch (32) for the
-        # teacher-forced decoder
-        for label, BH in (("encoder level 0", 64), ("encoder level 3", 64),
-                          ("decoder level 0", 32)):
-            Hl, Wl, N = cases[label]
+        # batch (64 slabs) for the encoder's four levels and the decode
+        # step, the training batch (32) for the teacher-forced decoder
+        for label, BH, (Hl, Wl, N) in FWD_TIMED:
             slab, gi, w4, _ = _sample_inputs(
                 torch, g, BH, Hl, Wl, N, Dh, torch.bfloat16, quad,
                 awkward=False)
@@ -790,7 +909,11 @@ def _fused_kernels(torch, g, card):
                     "bytes_ms": b_ms, "ops_ms": o_ms,
                     "shape": f"slab {tuple(slab.shape)} bf16, gi "
                              f"{tuple(gi.shape)}"}
-            print(f"{kind}_fwd [{label}] {times['fwd'][label]} ({card})",
+            t = times["fwd"][label]
+            t["bound_share"] = max(b_ms, o_ms) / t["device_ms"]
+            if not quad:
+                t["plan"] = tuple(mf.sample_fwd_plan(BH, N, Dh, 2))
+            print(f"{kind}_fwd [{label}] {json.dumps(t)} ({card})",
                   flush=True)
         # backwards at the training batch (32 slabs), every encoder level
         # and decoder level 0, uniform indices and the model's (quad bases

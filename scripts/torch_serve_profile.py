@@ -3,7 +3,7 @@
 
 Run on a CUDA card from the repository root:
 
-    python3 scripts/torch_serve_profile.py [--requests 3] [--out output/torch_profile]
+    python3 scripts/torch_serve_profile.py [--requests 3] [--out output/torch_profile] [--use-pallas-msda]
 
 Builds the flagship `CAPEConfig()` model (bf16, 512 px, random weights from
 a seed) behind `CAPEPredictor(batch_size=8)`, answers one warm-up request,
@@ -20,7 +20,9 @@ then:
 
 The MSDA formulation is the port's own selection: set `CAPE_MSDA_GATHER`
 (`fused`, `fusedq`, ...) and `CAPE_DECODE_PREQUAD=0` in the environment to
-profile another one; the selection that ran is printed.
+profile another one; the selection that ran is printed. With
+`--use-pallas-msda` the model is built with `use_pallas_msda=True`: its
+encoder sites run the whole-op MSDA kernel.
 
 Imports nothing of JAX. Prints the card's name and power limit first.
 """
@@ -85,13 +87,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--out", default="output/torch_profile")
+    ap.add_argument("--use-pallas-msda", action="store_true",
+                    help="the whole-op MSDA kernel at the encoder sites")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     print(chip_smoke.card_identity(), flush=True)
-    print(selection_line(), flush=True)
-    cfg = CAPEConfig()
+    cfg = CAPEConfig(use_pallas_msda=args.use_pallas_msda)
+    print(f"{selection_line()}, use_pallas_msda={cfg.use_pallas_msda}",
+          flush=True)
     model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     pred = CAPEPredictor(cfg, model, batch_size=8)
     proto = np.asarray(chip_smoke.PROTO_17, np.float32)

@@ -7,7 +7,10 @@ forward and backward (the explicit backward formula, not autograd of the
 forward). They are held against the JAX package's Pallas kernels in
 interpret mode, as `tests/test_msda_core.py` runs them off-TPU, and against
 the direct 4-corner oracle. fp32 tolerances are 1e-5 (the same terms
-summed in another order); the bf16 cases state theirs.
+summed in another order); the bf16 cases state theirs. The raw slab's
+forward kernel (`csrc/fused.cu`) is launched by `sample_fwd_plan`: its
+invariants are checked over random shapes, and `_emulate_fwd` walks a
+plan as the kernel does, against the plain version and the Pallas kernel.
 """
 
 import warnings
@@ -15,6 +18,8 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -173,6 +178,103 @@ def test_level_sample_checks_its_inputs():
         port_fused.fused_level_sample(slab, gi, w4, 0)
     with pytest.raises(ValueError, match="bands"):
         port_fused.quadfused_level_sample(torch.zeros(2, 35, 10), gi, w4)
+
+
+# -- the forward's launch (csrc/fused.cu) -------------------------------------
+@settings(max_examples=300, deadline=None)
+@given(BH=st.integers(0, 400), N=st.integers(0, 300_000),
+       Dh=st.sampled_from([4, 8, 16, 32, 64, 128]), elt=st.sampled_from([2, 4]))
+def test_fwd_plan_invariants(BH, N, Dh, elt):
+    units = Dh * elt // (8 if Dh * elt == 8 else 16)
+    if BH * N * units > 2 ** 31 - 256:      # lane indices past 32 bits
+        with pytest.raises(ValueError):
+            port_fused.sample_fwd_plan(BH, N, Dh, elt)
+        return
+    plan = port_fused.sample_fwd_plan(BH, N, Dh, elt)
+    # a row is whole units of 16 bytes (8 where a bf16 row is 8 bytes), a
+    # power of two of them, at most a warp
+    assert plan.units * plan.unit_bytes == Dh * elt
+    assert plan.unit_bytes == (8 if Dh * elt == 8 else 16)
+    assert plan.units & (plan.units - 1) == 0 and plan.units <= 32
+    # whole warps, and just enough blocks for every lane of every row
+    assert plan.threads % 32 == 0 and plan.threads % plan.units == 0
+    lanes = BH * N * plan.units
+    assert (plan.blocks - 1) * plan.threads < lanes \
+        <= plan.blocks * plan.threads or lanes == plan.blocks == 0
+    assert plan.blocks * plan.threads < 2 ** 31
+
+
+def _emulate_fwd(slab, gi, w4, Wl, plan):
+    """`csrc/fused.cu`'s forward over `plan`: thread i of the grid holds
+    unit i % units of row i // units (rows of all slabs in one range, row
+    r of slab r // N); corners 0-3 added in that order in fp32, a corner
+    outside [0, HW) read as zeros. Returns the (BH, N, Dh) sums and how
+    often each (row, unit) was written."""
+    BH, HW, Dh = slab.shape
+    N = gi.shape[1]
+    units = plan.units
+    V = Dh // units
+    rows = slab.reshape(BH, HW, units, V).astype(np.float32)
+    g, w = gi.reshape(-1).astype(np.int64), w4.reshape(-1, 4)
+    out = np.zeros((BH * N, units, V), np.float32)
+    written = np.zeros((BH * N, units), np.int64)
+    i = np.arange(plan.blocks * plan.threads)
+    r, u = i // units, i % units
+    live = r < BH * N                   # the rest return at once
+    r, u = r[live], u[live]
+    acc = np.zeros((r.size, V), np.float32)
+    for c, shift in enumerate((0, 1, Wl, Wl + 1)):
+        idx = g[r] + shift
+        ok = (idx >= 0) & (idx < HW)
+        v = np.where(ok[:, None], rows[r // N, np.clip(idx, 0, HW - 1), u],
+                     np.float32(0))
+        acc += w[r, c, None].astype(np.float32) * v
+    out[r, u] = acc
+    np.add.at(written, (r, u), 1)
+    return out.reshape(BH, N, Dh), written
+
+
+def _fwd_inputs(seed, BH, N, Dh, Hl=7, Wl=5):
+    rng = np.random.default_rng(seed)
+    HW = Hl * Wl
+    slab = rng.normal(size=(BH, HW, Dh)).astype(np.float32)
+    gi = rng.integers(-(Wl + 1), HW, (BH, N)).astype(np.int32)
+    gi[:, :3] = [-1000, HW + 9, HW - 1][:N]        # off range / last cell
+    w4 = rng.uniform(size=(BH, N, 4)).astype(np.float32)
+    return slab, gi, w4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", [16, 32])
+@pytest.mark.parametrize("N", [4, 800, 1003, 21_760])
+def test_emulated_fwd_covers_every_row_once(N, Dh, dtype):
+    """The plan's walk at the decode step's, the decoder's, a ragged and
+    the encoder's row counts: every (row, unit) written once, and the sums
+    equal `fused_level_sample_plain` and the Pallas `_fused_fwd_kernel` in
+    interpret mode (fp32 1e-5: another order; bf16: one rounding of the
+    fp32 sums, against the TPU kernel as `BF16_TOL` states)."""
+    BH = 2
+    slab, gi, w4 = _fwd_inputs(N + Dh, BH, N, Dh)
+    tdt = getattr(torch, dtype)
+    ts, tw = (torch.from_numpy(a).to(tdt) for a in (slab, w4))
+    plan = port_fused.sample_fwd_plan(BH, N, Dh, ts.element_size())
+    got, written = _emulate_fwd(ts.float().numpy(), gi, tw.float().numpy(),
+                                WL, plan)
+    assert (written == 1).all()
+    got_t = torch.from_numpy(got).to(tdt)
+    plain = port_fused.fused_level_sample_plain(ts, torch.from_numpy(gi), tw,
+                                                WL)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(
+        atol=1e-5, rtol=2 ** -7)
+    np.testing.assert_allclose(got_t.float().numpy(), plain.float().numpy(),
+                               **tol)
+    js, jw = (jnp.asarray(a.float().numpy(), dtype) for a in (ts, tw))
+    want = np.asarray(jax_fused.fused_level_sample(js, jnp.asarray(gi), jw,
+                                                   WL).astype(jnp.float32))
+    np.testing.assert_allclose(
+        got_t.float().numpy(), want,
+        **(dict(atol=1e-5, rtol=1e-5) if dtype == "float32"
+           else BF16_TOL["fused"]))
 
 
 # -- the cores ---------------------------------------------------------------

@@ -222,13 +222,17 @@ def test_dispatch_use_pallas_matches_core(lo, hi):
 
 
 def test_msda_forward_checks_its_inputs():
-    v = torch.zeros(2, 10, 8)
-    idx = torch.zeros(2, 3, 16, dtype=torch.int32)
-    w = torch.zeros(2, 3, 16)
-    with pytest.raises(TypeError):
-        port_msda_kernel.msda_forward(v, idx.long(), w, w)
+    v, loc, w = _t(*_msda_inputs(0))
+    with pytest.raises(TypeError):          # locations must be fp32
+        port_msda_kernel.msda_forward(v, SHAPES, loc.double(), w)
+    with pytest.raises(TypeError):          # weights in the value's dtype
+        port_msda_kernel.msda_forward(v, SHAPES, loc, w.bfloat16())
     with pytest.raises(ValueError):
-        port_msda_kernel.msda_forward(v, idx, w[:, :2], w)
+        port_msda_kernel.msda_forward(v, SHAPES, loc, w[:, :2])
+    with pytest.raises(ValueError):         # levels that do not match
+        port_msda_kernel.msda_forward(v, SHAPES[:2], loc, w)
+    with pytest.raises(ValueError):         # more cells than value rows
+        port_msda_kernel.msda_forward(v[:, :-1], SHAPES, loc, w)
 
 
 def test_cpu_calls_do_not_count_as_launches():
