@@ -5,7 +5,9 @@ Run from the root of the repository: `python3 chip_smoke.py`. It needs one
 card, builds the hand-written CUDA kernels from `cape_tpu_torch/ops/csrc`,
 and exits non-zero at the first phase that fails:
 
-1. card identity (`nvidia-smi` name and power limit);
+1. card identity (`nvidia-smi` name and power limit), the versions of
+   cv2 and PIL (or "absent") and the resize and decode routes the port
+   takes;
 2. each of the seven kernels against its plain PyTorch version on the
    card at the shapes of the serving and training paths (fp32 and bf16),
    with two times, its plain version's time, a library call's time where
@@ -32,14 +34,27 @@ and exits non-zero at the first phase that fails:
    encoder and of the decode steps through the fused kernels and none
    through `quad_gather`; and one `fused` request with the prepacked
    decode, whose steps fall back to `quad_gather` with a warning;
-6. the training path at the flagship width: `make_train_step` takes 8
+6. the evaluation path on the same weights: the port writes a synthetic
+   MP-100 tree (10 categories of 12 PNGs, 8-17 keypoints) into a
+   temporary directory; the port's own PNG reader and bilinear resize
+   against the installed decoder and resize on its images; the val
+   `MP100Dataset`, 12 fixed 1-shot episodes in 2 batches of 8 (4 padding
+   rows) built with 1 and 4 loader threads (byte-equal);
+   `evaluate_cape` over `prefetch(..., transform=to_device)` with the
+   auto decode cap, twice (identical stats), then under `fused` with
+   `CAPE_DECODE_PREQUAD=0`; launch counts against the decode steps, and
+   the per-batch split of the wall (waiting for the batch, decode, host
+   scoring) with episodes per second;
+7. the training path at the flagship width: `make_train_step` takes 8
    micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
    48 gathers and 48 scatters each; the forward/backward/optimizer split;
    two micro-steps with `use_pallas_msda=True`; two each under `fused`
    and `fusedq` (48 forward and 48 backward launches of the fused
    kernels, no gather and no scatter);
-7. fp32 on the card (kernels) against the CPU (plain versions): the
-   encoder memory of every MSDA path, the first decode step's logits, and
+8. fp32 on the card (kernels) against the CPU (plain versions): the
+   encoder memory of every MSDA path, the first decode step's logits, one
+   eval batch of 4 episodes scored by `evaluate_cape` (decode logits,
+   counts and every keypoint's normalised distance), and
    at a reduced config the loss and every parameter's gradient on the
    default, `use_pallas_msda`, `fused` and `fusedq` paths, a scatter that
    loses duplicate indices (which that check must reject), and one real
@@ -55,7 +70,11 @@ CUDA graph and replayed: what the call costs the device. Shares of the
 bound are `bound_ms / device_ms`; bounds use the H100 SXM peaks (3.35 TB/s,
 67 TFLOP/s fp32 outside the tensor cores). A line says "L2-warm" where a
 case's working set is below the 50 MB L2 (its inputs stay cached between
-the calls of a loop) and "above the L2" where it is not.
+the calls of a loop) and "above the L2" where it is not. The two row
+kernels' entries also carry `library_device_ms` (the library call
+captured and replayed the same way), and the kernels the evaluation path
+runs `eval_launches` (its default run for `quad_gather`, its `fused` run
+for `fused_fwd`).
 """
 
 from __future__ import annotations
@@ -63,9 +82,12 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 import warnings
 
 HBM_BYTES_PER_S = 3.35e12
@@ -531,7 +553,8 @@ def _gather_kernel(torch, g, card):
             "launches": 0, "max_abs_err": err, "ms": head["ms"],
             "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
-            "library_ms": head["library_ms"]}
+            "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"]}
 
 
 def _scatter_kernel(torch, g, card):
@@ -636,7 +659,8 @@ def _scatter_kernel(torch, g, card):
             "launches": 0, "max_abs_err": err, "ms": head["ms"],
             "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
-            "library_ms": head["library_ms"]}
+            "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"]}
 
 
 def _sample_inputs(torch, g, BH, Hl, Wl, N, Dh, dtype, quad, awkward):
@@ -1113,6 +1137,416 @@ def phase_serving(torch, np, card):
     return model, default_counts, pallas_counts, fused_counts
 
 
+# ----------------------------------------------------------------------
+#: the eval phase's synthetic MP-100 tree: 10 categories of 12 images with
+#: 8-17 keypoints, so the val split holds 2 categories and 24 images
+EVAL_TREE = dict(num_categories=10, images_per_category=12,
+                 keypoint_range=(8, 17))
+EVAL_EPISODES = 12
+#: the sized eval's tree: MP-100's 10 val categories (of 100: 70 train,
+#: 10 val, 20 test in every fold) with 20 images each, at 480 x 640, the
+#: commonest source size of MP-100's COCO-derived images; as few train and
+#: test categories as the fixture allows, since the run reads none
+EVAL_SIZED_TREE = dict(num_categories=22, num_holdout=20,
+                       images_per_category=20, keypoint_range=(8, 17),
+                       image_size=(480, 640))
+#: the eval protocol's val episode count (`--num_episodes`: 100 val, 200
+#: test)
+EVAL_SIZED_EPISODES = 100
+
+
+def _same_bytes(a, b):
+    """Two nested batch dicts with the same keys, dtypes, shapes, bytes."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bytes(a[k], b[k])
+                                            for k in a)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+@contextlib.contextmanager
+def _recorded_decode(torch, trained_length=False):
+    """Record each decode `evaluate_cape` runs: its synchronised ms, its
+    decode steps (the longest sample's length) and its outputs.
+
+    `trained_length=True` runs every decode for the steps a trained model
+    takes on the batch: its largest keypoint count + 1 (EOS), through
+    `autoregressive_decode`'s `force_length` (random weights emit EOS at
+    `min_decode_len`)."""
+    from cape_tpu_torch.eval import evaluate
+    from cape_tpu_torch.models.cape import autoregressive_decode
+
+    orig, calls = evaluate.decode, []
+
+    def decode(model, images, sc, sm, se, max_len=None):
+        force = int((~torch.as_tensor(sm)).sum(1).max()) + 1 \
+            if trained_length else None
+        t0 = time.perf_counter()
+        out = autoregressive_decode(model, images, sc, sm, se,
+                                    force_length=force, max_len=max_len) \
+            if trained_length else orig(model, images, sc, sm, se, max_len)
+        if out["lengths"].is_cuda:
+            torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "steps": int(out["lengths"].max()), "out": out})
+        return out
+
+    evaluate.decode = decode
+    try:
+        yield calls
+    finally:
+        evaluate.decode = orig
+
+
+def _timed(it, log):
+    """Yield from `it`, logging (asked, got) host times of each item."""
+    it = iter(it)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        log.append((t0, time.perf_counter()))
+        yield item
+
+
+class EvalSetup:
+    """What an eval phase built: the flagship config on a synthetic tree,
+    its fixed episodes and the auto decode cap."""
+
+    def __init__(self, cfg, root, tree=EVAL_TREE, episodes=EVAL_EPISODES):
+        from cape_tpu_torch.data.builder import resolve_split_file
+        from cape_tpu_torch.data.episodic import EpisodicSampler
+        from cape_tpu_torch.data.synthetic import make_synthetic_mp100
+
+        paths = make_synthetic_mp100(root, **tree)
+        self.cfg = cfg.replace(dataset_root=paths["root"],
+                               category_split_file=paths["split_file"])
+        ds = self.dataset()
+        self.sampler = EpisodicSampler(
+            ds, resolve_split_file(self.cfg), "val", num_queries=1,
+            num_support=self.cfg.num_support_per_episode)
+        self.fixed = self.sampler.fixed_episodes(episodes, 0)
+        maxk = max((ds.coco.category_num_keypoints(c) or 0)
+                   for c in self.sampler.categories)
+        # the eval CLI's "auto" cap: coords + EOS + margin, a multiple of 8
+        self.cap = min(self.cfg.seq_len, -(-(maxk + 2) // 8) * 8)
+        self.n_images = len(ds)
+
+    def dataset(self):
+        """A fresh val dataset (cold caches)."""
+        from cape_tpu_torch.data.builder import build_mp100_cape
+
+        return build_mp100_cape("val", self.cfg)
+
+    def batches(self, np, ds, n, batch, threads=1, cfg=None):
+        """The first `n` fixed episodes in batches of `batch`, padded."""
+        from cape_tpu_torch.data.episodic import episode_batches
+
+        cfg = cfg or self.cfg
+        return episode_batches(
+            ds, self.sampler, batch, -(-n // batch), cfg.image_size,
+            cfg.max_support_keypoints, cfg.max_skeleton_edges,
+            np.random.default_rng(0), fixed=self.fixed[:n],
+            num_threads=threads, total_episodes=n)
+
+
+def _image_routes(np, ev):
+    """The port's own PNG reader and bilinear resize, which run where cv2
+    and PIL are missing, on the eval tree's images: the reader gives the
+    installed decoder's bytes, the resize is within 1 level of the
+    installed one."""
+    from cape_tpu_torch.data import image
+
+    ds = ev.dataset()
+    worst = 0
+    for img_id in ds.ids[:6]:
+        path = os.path.join(ds.root, ds.coco.load_img(img_id)["file_name"])
+        own, lib = image.read_png(path), image.decode_rgb(path)
+        check(own.tobytes() == lib.tobytes(),
+              f"the own PNG reader differs from {image.DECODE_ROUTE}: {path}")
+        size = (ev.cfg.image_size, ev.cfg.image_size)
+        diff = np.abs(image.resize_bilinear(own, size).astype(np.int16)
+                      - image.resize(own, size).astype(np.int16))
+        worst = max(worst, int(diff.max()))
+    check(worst <= 1, f"the own bilinear resize is {worst} levels from "
+          f"{image.RESIZE_ROUTE}")
+    print(f"own image routes on 6 tree images: PNG reader equal to "
+          f"{image.DECODE_ROUTE}, bilinear resize within {worst} level of "
+          f"{image.RESIZE_ROUTE}", flush=True)
+
+
+def _eval_run(torch, np, model, ev, n, eb, visible, label,
+              trained_length=False, **env):
+    """`evaluate_cape` over the real pipeline (a cold dataset, one loader
+    thread, `prefetch` with `to_device`) on the first `n` fixed episodes
+    in batches of `eb`, under the auto cap; checks the episode and visible
+    keypoint counts and that every stat is finite. Returns the stats,
+    launch counts, decode steps, and the wall and per-batch host times in
+    ms (waiting for the batch, the synchronised decode, the host scoring
+    after it)."""
+    from cape_tpu_torch.data.prefetch import prefetch, to_device
+    from cape_tpu_torch.eval import evaluate_cape
+
+    log = []
+    ds = ev.dataset()
+    with selection(**env), _recorded_decode(torch, trained_length) as calls:
+        _reset_counts()
+        t0 = time.perf_counter()
+        stats = evaluate_cape(
+            model, _timed(prefetch(ev.batches(np, ds, n, eb),
+                                   transform=to_device), log),
+            ev.cfg, decode_max_len=ev.cap)
+        t_end = time.perf_counter()
+    counts = _counts()
+    check(len(calls) == -(-n // eb), f"{label}: {len(calls)} decodes")
+    check(stats["num_images"] == n,
+          f"{label}: num_images {stats['num_images']}")
+    check(stats["pck_num_visible"] == visible,
+          f"{label}: {stats['pck_num_visible']} visible keypoints "
+          f"scored, the batches hold {visible}")
+    finite = [stats["pck"], stats["pck_mean_categories"],
+              *stats["pck_per_category"].values()]
+    check(all(np.isfinite(v) for v in finite) and 0 <= stats["pck"] <= 1,
+          f"{label}: stats {stats}")
+    ends = [asked for asked, _ in log[1:]] + [t_end]
+    return types.SimpleNamespace(
+        stats=stats, counts=counts, steps=[c["steps"] for c in calls],
+        wall=(t_end - t0) * 1e3,
+        wait=[(got - asked) * 1e3 for asked, got in log],
+        decode=[c["ms"] for c in calls],
+        score=[(end - got) * 1e3 - c["ms"]
+               for (_, got), end, c in zip(log, ends, calls)])
+
+
+def _visible(np, batches):
+    """Visible ground-truth keypoints of the real rows of `batches`."""
+    return sum(int((b["gt_visibility"][i, :b["num_keypoints"][i]] > 0).sum())
+               for b in batches for i in np.flatnonzero(b["sample_valid"]))
+
+
+def phase_eval(torch, np, model, card, root):
+    """The evaluation path at the flagship width on the serving phase's
+    weights: a synthetic MP-100 tree on disk -> the val `MP100Dataset` ->
+    12 fixed 1-shot episodes in 2 batches of 8 (4 padding rows) built with
+    1 and with 4 threads -> `prefetch(..., transform=to_device)` ->
+    `evaluate_cape` under the auto decode cap, twice, then once under
+    `CAPE_MSDA_GATHER=fused` with `CAPE_DECODE_PREQUAD=0`; launch counts
+    checked against the decode steps. A check at a toy size: its times are
+    not the eval's (`phase_eval_sized` measures those)."""
+    from cape_tpu_torch.data.episodic import eval_batch_plan
+
+    t0 = time.perf_counter()
+    ev = EvalSetup(model.cfg, root)
+    cfg = ev.cfg
+    print(f"eval tree: {ev.n_images} val images in "
+          f"{len(ev.sampler.categories)} categories written and indexed in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; auto decode_max_len "
+          f"{ev.cap} (seq_len {cfg.seq_len})", flush=True)
+    check(ev.n_images == 24 and len(ev.sampler.categories) == 2,
+          "the eval tree's val split changed")
+    _image_routes(np, ev)
+    eb, nb = eval_batch_plan(EVAL_EPISODES, cfg.eval_batch_size)
+    check((eb, nb) == (8, 2), f"eval batch plan {(eb, nb)}")
+
+    # the batches, cold, with 1 and with 4 loader threads: byte-equal
+    build_ms, built = {}, {}
+    for threads in (1, 4):
+        ds = ev.dataset()
+        t0 = time.perf_counter()
+        built[threads] = list(ev.batches(np, ds, EVAL_EPISODES, eb, threads))
+        build_ms[threads] = (time.perf_counter() - t0) * 1e3 / nb
+    check(len(built[1]) == nb and all(
+        _same_bytes(a, b) for a, b in zip(built[1], built[4])),
+        "batches built with 4 threads differ from 1 thread's")
+    valid = np.concatenate([b["sample_valid"] for b in built[1]])
+    check(valid.sum() == EVAL_EPISODES and not valid[EVAL_EPISODES:].any(),
+          f"padding rows: sample_valid {valid.tolist()}")
+    S = cfg.image_size
+    check(built[1][0]["query_images"].dtype == np.uint8 and
+          built[1][0]["query_images"].shape == (eb, S, S, 3),
+          f"eval batches are not uint8 ({eb}, {S}, {S}, 3)")
+    visible = _visible(np, built[1])
+    print(f"eval batches: {nb} x {eb} episodes, byte-equal with 1 and 4 "
+          f"threads; build ms per batch (cold caches) 1 thread "
+          f"{build_ms[1]:.3f}, 4 threads {build_ms[4]:.3f}; "
+          f"{visible} visible GT keypoints", flush=True)
+
+    L = cfg.num_feature_levels
+    enc = cfg.enc_layers * L
+
+    def run(label, **env):
+        r = _eval_run(torch, np, model, ev, EVAL_EPISODES, eb, visible,
+                      label, **env)
+        print(f"{label}: PCK@0.2 {r.stats['pck']:.6f} "
+              f"({r.stats['pck_num_correct']}/{r.stats['pck_num_visible']}), "
+              f"mean over categories {r.stats['pck_mean_categories']:.6f}; "
+              f"decode steps {r.steps}; launches {r.counts}; wall "
+              f"{r.wall:.3f} ms, {EVAL_EPISODES / r.wall * 1e3:.3f} "
+              f"episodes/s; per batch: waiting for the batch "
+              f"{[round(t, 3) for t in r.wait]} ms, decode (synchronised) "
+              f"{[round(t, 3) for t in r.decode]} ms, host scoring "
+              f"{[round(t, 3) for t in r.score]} ms ({card})", flush=True)
+        return r.stats, r.counts, r.steps
+
+    stats, counts, steps = run("eval, default path")
+    _check_counts(counts, "the eval's default path",
+                  quad_gather=sum(enc + cfg.dec_layers * s for s in steps))
+    again, _, _ = run("eval, default path again")
+    check(again == stats, f"a second eval gave other stats: {again} "
+          f"against {stats}")
+    fused, fcounts, fsteps = run(
+        "eval, CAPE_MSDA_GATHER=fused CAPE_DECODE_PREQUAD=0",
+        CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")
+    _check_counts(fcounts, "the fused eval", fused_fwd=sum(
+        enc + cfg.dec_layers * L * s for s in fsteps))
+    print(f"eval PCK@0.2: default path {stats['pck']:.6f}, fused "
+          f"{fused['pck']:.6f} ({card})", flush=True)
+    return ev, counts, fcounts
+
+
+def phase_eval_sized(torch, np, model, card, root):
+    """The evaluation path at a measuring size, on the serving phase's
+    weights: the eval protocol's 100 val episodes over MP-100's 10 val
+    categories, from 480 x 640 source images, in 13 batches of 8 (4
+    padding rows). The batches are built cold with 1 and with 4 loader
+    threads (byte-equal); then `evaluate_cape` runs for the random
+    weights' own decode length and for a trained model's (each batch's
+    largest keypoint count + 1), launch counts checked. Prints the first
+    batch apart from the rest, and each part's share of the wall."""
+    from cape_tpu_torch.data.episodic import eval_batch_plan
+
+    t0 = time.perf_counter()
+    ev = EvalSetup(model.cfg, root, EVAL_SIZED_TREE, EVAL_SIZED_EPISODES)
+    cfg, n = ev.cfg, EVAL_SIZED_EPISODES
+    h, w = EVAL_SIZED_TREE["image_size"]
+    print(f"sized eval tree: {ev.n_images} val images of {h} x {w} in "
+          f"{len(ev.sampler.categories)} categories written and indexed in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; auto decode_max_len "
+          f"{ev.cap}", flush=True)
+    check(ev.n_images == 200 and len(ev.sampler.categories) == 10,
+          "the sized eval tree's val split changed")
+    eb, nb = eval_batch_plan(n, cfg.eval_batch_size)
+    check((eb, nb) == (8, 13), f"sized eval batch plan {(eb, nb)}")
+
+    build_ms, built = {}, {}
+    for threads in (1, 4):
+        ds = ev.dataset()
+        t0 = time.perf_counter()
+        built[threads] = list(ev.batches(np, ds, n, eb, threads))
+        build_ms[threads] = (time.perf_counter() - t0) * 1e3 / nb
+    check(len(built[1]) == nb and all(
+        _same_bytes(a, b) for a, b in zip(built[1], built[4])),
+        "sized eval batches built with 4 threads differ from 1 thread's")
+    visible = _visible(np, built[1])
+    trained = [int((~b["support_mask"]).sum(1).max()) + 1 for b in built[1]]
+    del built
+    print(f"sized eval batches: {nb} x {eb} episodes, byte-equal with 1 "
+          f"and 4 threads; build ms per batch (cold dataset, 16 image "
+          f"loads) 1 thread {build_ms[1]:.3f}, 4 threads "
+          f"{build_ms[4]:.3f}; {visible} visible GT keypoints", flush=True)
+
+    enc = cfg.enc_layers * cfg.num_feature_levels
+    for label, forced in (("sized eval, random weights' decode length",
+                           False),
+                          ("sized eval, trained decode length", True)):
+        r = _eval_run(torch, np, model, ev, n, eb, visible, label,
+                      trained_length=forced)
+        _check_counts(r.counts, label, quad_gather=sum(
+            enc + cfg.dec_layers * s for s in r.steps))
+        if forced:
+            check(r.steps == trained, f"{label}: decode steps {r.steps}, "
+                  f"a trained model's {trained}")
+        share = {k: 100 * sum(getattr(r, k)) / r.wall
+                 for k in ("wait", "decode", "score")}
+        rest = r.decode[1:]
+        print(f"{label}: decode steps {r.steps}; quad_gather launches "
+              f"{r.counts['quad_gather']}; wall {r.wall:.3f} ms, "
+              f"{n / r.wall * 1e3:.3f} episodes/s; first batch: waiting "
+              f"{r.wait[0]:.3f}, decode {r.decode[0]:.3f}, scoring "
+              f"{r.score[0]:.3f} ms; batches 2-{nb}: waiting "
+              f"{sum(r.wait[1:]):.3f} in all (at most "
+              f"{max(r.wait[1:]):.3f}), decode {np.mean(rest):.3f} a batch "
+              f"({min(rest):.3f}-{max(rest):.3f}), "
+              f"{sum(rest) / sum(r.steps[1:]):.3f} a decode step with "
+              f"the batch's encoder spread over its steps, scoring "
+              f"{np.mean(r.score[1:]):.3f} a batch; shares of the wall: "
+              f"waiting {share['wait']:.2f}%, decode {share['decode']:.2f}%, "
+              f"scoring {share['score']:.2f}% ({card})", flush=True)
+    shutil.rmtree(root)
+
+
+def _eval_fp32(torch, np, m32, m_cpu, ev):
+    """fp32: one batch of 4 fixed episodes scored by `evaluate_cape` on the
+    card (kernels) and on the CPU (plain versions), under the auto cap."""
+    from cape_tpu_torch.data.prefetch import to_device
+    from cape_tpu_torch.eval import evaluate_cape
+    from cape_tpu_torch.eval.evaluate import (extract_gt_keypoints,
+                                              extract_pred_keypoints)
+    from cape_tpu_torch.eval.pck import normalized_distances
+
+    cfg = m32.cfg.replace(dataset_root=ev.cfg.dataset_root,
+                          category_split_file=ev.cfg.category_split_file)
+    batch = next(ev.batches(np, ev.dataset(), 4, 4, cfg=cfg))
+    out, stats = {}, {}
+    for name, model, b in (("card", m32, to_device(batch)),
+                           ("cpu", m_cpu, batch)):
+        with _recorded_decode(torch) as calls:
+            stats[name] = evaluate_cape(model, [b], cfg,
+                                        decode_max_len=ev.cap)
+        out[name] = {k: v.cpu().numpy() for k, v in calls[0]["out"].items()}
+    lg, lc = out["card"]["pred_logits"], out["cpu"]["pred_logits"]
+    err = float(np.abs(lg - lc).max())
+    print(f"fp32 eval, card vs CPU (4 episodes, decode steps "
+          f"{int(out['card']['lengths'].max())} / "
+          f"{int(out['cpu']['lengths'].max())}): decode logits max abs err "
+          f"{err:.3e} (tolerance 1e-3 abs + 1e-3 rel); PCK "
+          f"{stats['card']['pck_num_correct']}/"
+          f"{stats['card']['pck_num_visible']} on the card, "
+          f"{stats['cpu']['pck_num_correct']}/"
+          f"{stats['cpu']['pck_num_visible']} on the CPU", flush=True)
+    torch.testing.assert_close(torch.as_tensor(lg), torch.as_tensor(lc),
+                               atol=1e-3, rtol=1e-3)
+    check(stats["card"]["pck_num_visible"] == stats["cpu"]["pck_num_visible"],
+          "fp32 eval: visible keypoints differ")
+
+    def scored(o):
+        """Normalised distance of every visible keypoint of a real row, as
+        `evaluate_cape` scores it."""
+        n = batch["num_keypoints"]
+        active = np.arange(o["pred_logits"].shape[1])[None] \
+            < o["lengths"][:, None]
+        preds = extract_pred_keypoints(o["pred_logits"], o["pred_coords"],
+                                       active, n)
+        gts = extract_gt_keypoints(batch["targets"], n)
+        d = {}
+        for i in np.flatnonzero(batch["sample_valid"]):
+            bw, bh = batch["bbox_dims"][i]
+            dist = normalized_distances(preds[i] * cfg.image_size,
+                                        gts[i] * cfg.image_size,
+                                        float(bw), float(bh))
+            for k in np.flatnonzero(batch["gt_visibility"][i, :n[i]] > 0):
+                d[int(i), int(k)] = float(dist[k])
+        return d
+
+    dc, dp = scored(out["card"]), scored(out["cpu"])
+    check(dc.keys() == dp.keys(), "fp32 eval: other keypoints scored")
+    print(f"fp32 eval: normalised distances of the {len(dc)} scored "
+          f"keypoints differ between card and CPU by at most "
+          f"{max(abs(dc[k] - dp[k]) for k in dc):.3e}; the nearest to the "
+          f"threshold 0.2 lies {min(abs(d - 0.2) for d in dc.values()):.3e} "
+          f"from it", flush=True)
+    if stats["card"]["pck_num_correct"] != stats["cpu"]["pck_num_correct"]:
+        for key in dc:
+            if (dc[key] < 0.2) != (dp[key] < 0.2):
+                print(f"  keypoint {key}: normalised distance {dc[key]:.6f} "
+                      f"on the card, {dp[key]:.6f} on the CPU", flush=True)
+                check(abs(dc[key] - 0.2) < 1e-3 and abs(dp[key] - 0.2) < 1e-3,
+                      f"fp32 eval: keypoint {key} scored differently away "
+                      "from the threshold")
+
+
 def _train_batch(np, cfg, rng):
     """One seeded teacher-forced batch of batch_size episodes x
     num_queries_per_episode query images: uint8 images, a jittered
@@ -1512,7 +1946,8 @@ def phase_fp32_grads(torch, np):
 def phase_fp32_checks(torch, np, model):
     """fp32: use_pallas encoder memory vs the default's on the card, the
     card (kernels) vs the CPU (plain versions) for one image, and the
-    fused formulations vs the default path on the card."""
+    fused formulations vs the default path on the card. Returns the fp32
+    models on the card and on the CPU (same weights)."""
     from cape_tpu_torch import CAPE
     from cape_tpu_torch.models.cape import autoregressive_decode
 
@@ -1581,6 +2016,7 @@ def phase_fp32_checks(torch, np, model):
               f"abs + 1e-3 rel)", flush=True)
         torch.testing.assert_close(mem_f, mem, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(lf.cpu(), lg, atol=1e-3, rtol=1e-3)
+    return m32, m_cpu
 
 
 # ----------------------------------------------------------------------
@@ -1593,6 +2029,7 @@ def main() -> int:
     try:
         import numpy as np
 
+        from cape_tpu_torch.data import image
         from cape_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -1600,11 +2037,16 @@ def main() -> int:
         return 2
     for name in ("CAPE_MSDA_GATHER", "CAPE_MSDA_TINY", "CAPE_DECODE_PREQUAD"):
         os.environ.pop(name, None)     # each phase sets what it selects
+    libs = image.library_versions()
+    tree = tempfile.TemporaryDirectory(prefix="chip_smoke_mp100_")
     try:
         card = card_identity()
         print(card, flush=True)
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}", flush=True)
+        print(f"image libraries: cv2 {libs['cv2']}, PIL {libs['PIL']}; the "
+              f"port resizes by {image.RESIZE_ROUTE} and decodes by "
+              f"{image.DECODE_ROUTE}", flush=True)
         t0 = time.perf_counter()
         _build.build_all()
         print(f"kernels built in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1615,11 +2057,17 @@ def main() -> int:
         kernels = phase_kernels(torch, card)
         model, default_counts, pallas_counts, fused_counts = phase_serving(
             torch, np, card)
+        ev, eval_counts, eval_fused_counts = phase_eval(
+            torch, np, model, card, tree.name)
+        phase_eval_sized(torch, np, model, card,
+                         os.path.join(tree.name, "sized"))
         train_model, train_counts = phase_training(torch, np, card)
         phase_training_pallas(torch, np, train_model, card)
         fused_bwd_counts = phase_training_fused(torch, np, train_model, card)
         del train_model
-        phase_fp32_checks(torch, np, model)
+        m32, m_cpu = phase_fp32_checks(torch, np, model)
+        _eval_fp32(torch, np, m32, m_cpu, ev)
+        del m32, m_cpu
         phase_fp32_grads(torch, np)
         check("jax" not in sys.modules and not any(
             k == "cape_tpu" or k.startswith("cape_tpu.") for k in sys.modules),
@@ -1627,6 +2075,8 @@ def main() -> int:
     except (Failed, AssertionError, RuntimeError, ValueError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        tree.cleanup()
     # each kernel's launches from its own path's run: the serving requests
     # for the forward kernels, the training micro-steps for the backward
     launches = {"quad_gather": default_counts["quad_gather"],
@@ -1636,8 +2086,13 @@ def main() -> int:
                 "quadfused_fwd": fused_counts["quadfused_fwd"],
                 "fused_bwd": fused_bwd_counts["fused"],
                 "quadfused_bwd": fused_bwd_counts["quadfused"]}
+    # and the evaluation path's runs (default path, then `fused`)
+    eval_launches = {"quad_gather": eval_counts["quad_gather"],
+                     "fused_fwd": eval_fused_counts["fused_fwd"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in eval_launches:
+            k["eval_launches"] = eval_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

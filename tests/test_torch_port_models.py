@@ -288,8 +288,9 @@ def test_from_jax_params_rejects_bad_trees(tiny, fault):
 # -- package rules ---------------------------------------------------------------
 def test_port_imports_neither_jax_nor_cape_tpu():
     """Every submodule imports with jax, flax and optax blocked, the
-    training subpackages `losses/` and `train/` and the fused MSDA kernels'
-    module included, and no
+    training subpackages `losses/` and `train/`, the fused MSDA kernels'
+    module and the evaluation path's `data/`, `eval/` and `utils/` modules
+    included, and no
     `cape_tpu.` module of the JAX package gets loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -301,7 +302,8 @@ def test_port_imports_neither_jax_nor_cape_tpu():
         "'cape_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('losses.criterion', 'train.state', 'train.train_step',\n"
-        "          'ops.msda_fused'):\n"
+        "          'ops.msda_fused', 'data.episodic', 'data.image',\n"
+        "          'eval.audit', 'utils.logging'):\n"
         "    assert 'cape_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'cape_tpu' or "
         "k.startswith('cape_tpu.')]\n"
