@@ -17,6 +17,7 @@ port's attribute names:
     support_encoder/gcn_i/Dense_0            -> support_encoder.gcn.i.linear
     decoder/coords_head_i/Dense_k            -> decoder.coords_heads.i.layers.k
     backbone/layerL_blockB/...               -> backbone.layerL.B....
+    row_embed|col_embed (learned PE tables)   -> row_embed|col_embed
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ Numpy end to end; the batches become tensors only at the device boundary
 - crop to bbox, shift keypoints into the bbox frame (`:332-349`)
 - keep ALL keypoints incl. invisible to preserve skeleton index
   correspondence (`:353-392`)
-- deterministic val resize (`:943-946`); the train augmentation is not
-  ported yet, so `augment=True` raises
+- train augmentation (`data.augment.train_augment`, which requires cv2)
+  / deterministic val resize (`:898-946`)
 - image -> float32 / 255 (+ optional ImageNet normalization) (`:437-444`),
   or uint8 records normalised on the device (`uint8_images`)
 - bilinear 4-corner tokenization (`:625-832`, see tokenizer.py)
@@ -29,7 +29,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .augment import resize_with_keypoints
+from .augment import resize_with_keypoints, train_augment
 from .coco import COCOIndex
 from .image import decode_rgb
 from .tokenizer import DiscreteTokenizer, tokenize_keypoints
@@ -107,8 +107,7 @@ class MP100Dataset:
         ann_file: COCO annotation JSON path (or pre-parsed dict).
         tokenizer: DiscreteTokenizer instance shared with the model.
         image_size: output square size (reference resizes to 512).
-        split: 'train' would enable augmentation, which the port does not
-            have yet: pass `augment=False` for a train split.
+        split: 'train' enables augmentation; others resize only.
         image_norm: apply ImageNet mean/std after /255.
         uint8_images: keep records as uint8 — /255 (+ image_norm) happens
             on device inside the model (`CAPE.encode_image`), quartering
@@ -127,12 +126,6 @@ class MP100Dataset:
         cache_mb: int = 1024,
         uint8_images: bool = False,
     ):
-        if augment if augment is not None else split == "train":
-            raise NotImplementedError(
-                "MP100Dataset(augment=True): the train-time augmentation "
-                "(cape_tpu.data.augment.train_augment) is not ported yet; it "
-                "is queued with the host training loop (ROADMAP.md, queue 1 "
-                "item 5). Pass augment=False (or cfg.disable_augment)")
         self.root = img_folder
         self.coco = COCOIndex(ann_file)
         self.ids = self.coco.get_img_ids()
@@ -141,13 +134,14 @@ class MP100Dataset:
         self.split = split
         self.image_norm = image_norm
         self.uint8_images = uint8_images
+        self.augment = augment if augment is not None else (split == "train")
         # host-pipeline caches (episodic sampling revisits the same images):
         # - crop cache: decoded uint8 bbox crop + shifted keypoints; skips
-        #   file read + PNG decode + crop on reuse
-        # - record cache: the final record; fixed-episode validation costs
-        #   ~zero host work after its first epoch. Returned arrays are
-        #   READ-ONLY by convention: copy before writing (`to_device`
-        #   copies them into tensors).
+        #   file read + PNG decode + crop on reuse (augment still runs)
+        # - record cache (deterministic no-augment path only): the final
+        #   record; fixed-episode validation costs ~zero host work after
+        #   its first epoch. Returned arrays are READ-ONLY by convention:
+        #   copy before writing (`to_device` copies them into tensors).
         self._crop_cache = _LRUBytes(cache_mb)
         self._record_cache = _LRUBytes(cache_mb)
 
@@ -162,16 +156,26 @@ class MP100Dataset:
         `uint8_images`), keypoints (N,2) float64 in resized-image pixels,
         visibility (N,), category_id, skeleton (0-indexed edge list),
         bbox_width/height (original pixels), num_keypoints, image_id,
-        seq_data (tokenized target dict). `rng` is unused while the port
-        has no augmentation; it is kept for the JAX package's signature.
+        seq_data (tokenized target dict). `rng` draws the augmentation
+        (a fresh unseeded generator when None, as in the JAX package).
         """
+        rng = rng or np.random.default_rng()
         img_id = self.ids[index]
-        cached = self._record_cache.get(img_id)
-        if cached is not None:
-            return dict(cached)  # shallow copy; arrays are read-only
+
+        if not self.augment:
+            cached = self._record_cache.get(img_id)
+            if cached is not None:
+                return dict(cached)  # shallow copy; arrays are read-only
 
         crop, keypoints, visibility, ann, bw, bh = self._load_crop(img_id)
-        crop, keypoints = resize_with_keypoints(crop, keypoints, self.image_size)
+        keypoints = keypoints.copy()  # cached array must stay pristine
+
+        if self.augment:
+            crop, keypoints = train_augment(crop, keypoints, self.image_size,
+                                            rng)
+        else:
+            crop, keypoints = resize_with_keypoints(crop, keypoints,
+                                                    self.image_size)
 
         if self.uint8_images:
             image = crop  # device normalizes (CAPE.encode_image)
@@ -210,7 +214,8 @@ class MP100Dataset:
             "image_id": img_id,
             "seq_data": seq_data,
         }
-        self._record_cache.put(img_id, dict(record), image.nbytes)
+        if not self.augment:
+            self._record_cache.put(img_id, dict(record), image.nbytes)
         return record
 
     # ------------------------------------------------------------------

@@ -6,12 +6,17 @@ The JAX package runs NHWC; this module runs PyTorch's NCHW, and
 back to the JAX package's row-major `(B, H*W, C)` order). Normalisation
 layers are `FrozenAffine`, the inference form of a frozen BN. Returns the
 layer2/3/4 feature maps (strides 8/16/32, channels 512/1024/2048).
+
+`load_torch_resnet50_state` / `_npz` fold a torchvision resnet50
+state_dict (ImageNet weights) into the backbone: BN folds into each
+`FrozenAffine`, and the convs, already OIHW, are copied as they are.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -118,3 +123,77 @@ class ResNet50(nn.Module):
         c4 = self.layer3(c3)
         c5 = self.layer4(c4)
         return c3, c4, c5
+
+
+def resnet50_state_from_torchvision(backbone: ResNet50,
+                                    sd: Mapping[str, np.ndarray]
+                                    ) -> Dict[str, torch.Tensor]:
+    """The fp32 values a torchvision resnet50 state_dict ({key: array})
+    gives `backbone`'s parameters, by the backbone's own names.
+
+    Keys like 'conv1.weight', 'layer1.0.conv1.weight',
+    'layer1.0.bn1.{weight,bias,running_mean,running_var}',
+    'layer1.0.downsample.{0,1}.*'. BN folds to scale = w/sqrt(var+eps),
+    bias = b - mean*scale with eps 1e-5, in the arrays' own dtype as the
+    JAX package folds (`cape_tpu.models.backbone.load_torch_resnet50_state`).
+    `conv1` is taken only where its input channels match the backbone's
+    (a 3-channel checkpoint leaves another `input_channels`' stem as it
+    is); a block without `downsample.*` keys keeps its downsample.
+    """
+    eps = 1e-5
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(name, key):
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.asarray(sd[key], dtype=np.float32).copy())
+
+    def bn(name, prefix):
+        w, b = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+        rm, rv = sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"]
+        scale = w / np.sqrt(rv + eps)
+        out[f"{name}.scale"] = torch.from_numpy(scale.astype(np.float32))
+        out[f"{name}.bias"] = torch.from_numpy(
+            (b - rm * scale).astype(np.float32))
+
+    if sd["conv1.weight"].shape[1] == backbone.conv1.weight.shape[1]:
+        conv("conv1", "conv1.weight")
+    bn("bn1", "bn1")
+    for li in range(4):
+        for bi in range(len(getattr(backbone, f"layer{li + 1}"))):
+            t = f"layer{li + 1}.{bi}"
+            for c in ("conv1", "conv2", "conv3"):
+                conv(f"{t}.{c}", f"{t}.{c}.weight")
+            for n in ("bn1", "bn2", "bn3"):
+                bn(f"{t}.{n}", f"{t}.{n}")
+            if f"{t}.downsample.0.weight" in sd:
+                conv(f"{t}.downsample_conv", f"{t}.downsample.0.weight")
+                bn(f"{t}.downsample_bn", f"{t}.downsample.1")
+    params = dict(backbone.named_parameters())
+    for name, value in out.items():
+        if tuple(value.shape) != tuple(params[name].shape):
+            raise ValueError(f"torchvision weights for {name!r}: shape "
+                             f"{tuple(value.shape)}, the backbone's "
+                             f"{tuple(params[name].shape)}")
+    return out
+
+
+def load_torch_resnet50_state(backbone: ResNet50,
+                              sd: Mapping[str, np.ndarray]
+                              ) -> Dict[str, torch.Tensor]:
+    """Fold a torchvision resnet50 state_dict into `backbone` in place (its
+    parameters take the values cast to their dtype); returns the fp32
+    values by the backbone's names, which training keeps as the masters
+    (`train.create_train_state(..., masters=...)`)."""
+    values = resnet50_state_from_torchvision(backbone, sd)
+    params = dict(backbone.named_parameters())
+    with torch.no_grad():
+        for name, value in values.items():
+            params[name].copy_(value)
+    return values
+
+
+def load_torch_resnet50_npz(backbone: ResNet50, npz_path: str
+                            ) -> Dict[str, torch.Tensor]:
+    """`load_torch_resnet50_state` from a state_dict saved as `.npz`."""
+    with np.load(npz_path) as z:
+        return load_torch_resnet50_state(backbone, dict(z))

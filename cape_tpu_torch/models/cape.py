@@ -33,7 +33,7 @@ from ..device import DeviceLike, resolve_device
 from .backbone import ResNet50
 from .decoder import Decoder
 from .deformable import DeformableEncoder, MSDeformAttn
-from .layers import default_init_, normal_, xavier_uniform_, zeros_
+from .layers import default_init_, normal_, uniform_, xavier_uniform_, zeros_
 from .position_encoding import image_sine_pe_2d
 from .support_encoder import GeometricSupportEncoder
 
@@ -53,9 +53,9 @@ def _unsupported(cfg: CAPEConfig) -> Optional[str]:
     if cfg.support_fusion_method != "cross_attention":
         return (f"support_fusion_method={cfg.support_fusion_method!r}: only "
                 "'cross_attention' is functional (matches the reference)")
-    if cfg.position_embedding not in ("sine", "v2"):
-        return (f"position_embedding={cfg.position_embedding!r}: the port "
-                "has the sine encoding only")
+    if cfg.position_embedding not in ("sine", "v2", "learned", "v3"):
+        return (f"position_embedding={cfg.position_embedding!r}: 'sine'/'v2' "
+                "or 'learned'/'v3' (reference position_encoding.py:76-81)")
     if not cfg.use_geometric_encoder:
         return "use_geometric_encoder=False (SupportPoseGraphEncoder) is not ported"
     if cfg.dec_layer_type != "v1":
@@ -93,6 +93,14 @@ class CAPE(nn.Module):
             + [nn.Sequential(nn.Conv2d(2048, d, 3, stride=2, padding=1),
                              nn.GroupNorm(32, d, eps=1e-5))])
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
+        if self.learned_pe:
+            # PositionEmbeddingLearned (`position_encoding.py:41-64`):
+            # per-axis tables, pe = concat(col[x], row[y]), sized to the
+            # largest feature level (the JAX package's choice)
+            max_hw = max(h for h, _ in level_shapes(
+                cfg.image_size, cfg.num_feature_levels, cfg.dilation))
+            self.row_embed = nn.Parameter(torch.zeros(max_hw, d // 2))
+            self.col_embed = nn.Parameter(torch.zeros(max_hw, d // 2))
         self.encoder = DeformableEncoder(
             cfg.enc_layers, d, cfg.dim_feedforward, dropout=cfg.dropout,
             n_levels=cfg.num_feature_levels, n_heads=cfg.nheads,
@@ -124,6 +132,9 @@ class CAPE(nn.Module):
             xavier_uniform_(proj[0].weight, g)
             zeros_(proj[0].bias)
         normal_(self.level_embed, 1.0, g)
+        if self.learned_pe:
+            uniform_(self.row_embed, g)
+            uniform_(self.col_embed, g)
 
     def _cast(self, dtype: torch.dtype) -> None:
         """Cast to the compute dtype, keeping the fp32 islands in fp32."""
@@ -143,12 +154,23 @@ class CAPE(nn.Module):
         return self.level_embed.dtype
 
     @property
+    def learned_pe(self) -> bool:
+        return self.cfg.position_embedding in ("learned", "v3")
+
+    @property
     def spatial_shapes(self) -> Tuple[Tuple[int, int], ...]:
         return level_shapes(self.cfg.image_size, self.cfg.num_feature_levels,
                             self.cfg.dilation)
 
     def _level_pe(self, h: int, w: int) -> torch.Tensor:
-        """(h*w, D) sine positional encoding of one level, cached."""
+        """(h*w, D) positional encoding of one level: the learned tables'
+        (col[x], row[y]), or the sine encoding, cached."""
+        if self.learned_pe:
+            x_emb = self.col_embed[:w]                          # (w, D/2)
+            y_emb = self.row_embed[:h]                          # (h, D/2)
+            return torch.cat([x_emb[None].expand(h, w, -1),
+                              y_emb[:, None].expand(h, w, -1)],
+                             dim=-1).reshape(h * w, -1)
         key = (h, w, self.dtype, self.device)
         pe = self._pe_cache.get(key)
         if pe is None:
@@ -187,7 +209,7 @@ class CAPE(nn.Module):
         """Post-projection NCHW levels (B, D, Hl, Wl) -> encoder memory.
 
         Each level flattens row-major to (B, Hl*Wl, D), the JAX package's
-        order, and gets its sine PE plus `level_embed`.
+        order, and gets its positional encoding plus `level_embed`.
         """
         flat, pos_flat = [], []
         for lvl, src in enumerate(srcs):

@@ -68,6 +68,11 @@ def normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
     _fill(p, torch.randn(p.shape, generator=g) * std)
 
 
+def uniform_(p: torch.Tensor, g: torch.Generator) -> None:
+    """flax `uniform(scale=1.0)`: U[0, 1)."""
+    _fill(p, torch.rand(p.shape, generator=g))
+
+
 def zeros_(p: torch.Tensor) -> None:
     with torch.no_grad():
         p.zero_()

@@ -12,8 +12,10 @@ prototype and returns pixel keypoints in the original image frame:
 - host postprocessing: trim to the category keypoint count, map back
   through resize + crop into original pixel coordinates.
 
-Loading an orbax checkpoint (`from_checkpoint`) waits for a later slice;
-weights come from `convert.from_jax_params` or a seeded initialisation.
+`CAPEPredictor.from_checkpoint` loads a checkpoint the port's training
+loop wrote (`utils.checkpoint`: the config from `meta.json`, the fp32
+masters from `state.pt`); weights may also come from
+`convert.from_jax_params` or a seeded initialisation.
 """
 
 from __future__ import annotations
@@ -29,13 +31,15 @@ from .data.token_types import TokenType
 from .device import DeviceLike, resolve_device
 from .eval.evaluate import decode, extract_pred_keypoints
 from .models.cape import CAPE
+from .utils.checkpoint import config_of, load_weights
 
 
 class CAPEPredictor:
     """Category-agnostic pose estimation on raw images.
 
     Usage:
-        predictor = CAPEPredictor(cfg, CAPE(cfg))   # on the card
+        predictor = CAPEPredictor.from_checkpoint("output/.../best_...")
+        # or CAPEPredictor(cfg, CAPE(cfg)), on the card
         results = predictor.predict(
             images=[img_hwc_uint8, ...],          # raw RGB
             support_coords=proto,                  # (N, 2) in [0, 1]
@@ -53,6 +57,18 @@ class CAPEPredictor:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = max(1, batch_size)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str, batch_size: int = 8,
+                        device: DeviceLike = None) -> "CAPEPredictor":
+        """Load a self-describing checkpoint directory (epoch_N / best_*):
+        the model is rebuilt from its config on `device` (the card unless
+        the caller asks for the CPU) and takes its fp32 masters."""
+        cfg = config_of(checkpoint)
+        model = CAPE(cfg, device=device)
+        load_weights(model, checkpoint)
+        return cls(cfg, model, batch_size=batch_size, device=device)
 
     # ------------------------------------------------------------------
     def _prepare(self, image: np.ndarray, bbox) -> Dict:

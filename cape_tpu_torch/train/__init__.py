@@ -1,4 +1,5 @@
-"""Training: the train state, the fused AdamW and the train/eval steps."""
+"""Training: the train state, the fused AdamW, the train/eval steps and
+the host loop (`train.loop.train_loop`)."""
 
 from .state import TrainState, create_train_state, make_lr_schedule
 from .train_step import (make_eval_loss_fn, make_scan_train_step,

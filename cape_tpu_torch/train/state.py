@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -156,13 +156,28 @@ class FusedAdamW:
         lrs["frozen"] = 0.0
         return lrs
 
-    def init(self, model: nn.Module) -> OptState:
+    def init(self, model: nn.Module,
+             masters: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> OptState:
+        """The state of a fresh run: the model's parameters become the fp32
+        masters, except those `masters` gives fp32 values for by name (the
+        model holding them rounded to its dtype)."""
         labels = _param_labels(model, self.freeze_affine)
+        given = dict(masters or {})
+        unknown = set(given) - set(labels)
+        if unknown:
+            raise KeyError(f"masters for no parameter: {sorted(unknown)}")
         names, masters = [], []
         for name, p in model.named_parameters():
             names.append(name)
-            masters.append(p.data if p.dtype == torch.float32
-                           else p.data.float())
+            m = p.data if p.dtype == torch.float32 else p.data.float()
+            if name in given:
+                if tuple(given[name].shape) != tuple(p.shape):
+                    raise ValueError(f"master {name!r}: shape "
+                                     f"{tuple(given[name].shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                m.copy_(given[name])
+            masters.append(m)
 
         def zeros():
             return [torch.zeros_like(m) for m in masters]
@@ -242,10 +257,27 @@ class TrainState:
     tx: FusedAdamW = field(repr=False)
     opt_state: OptState = field(repr=False)
 
+    def state_dict(self) -> Dict:
+        """What `load_state_dict` takes: `step`, the fp32 masters as
+        `params`, `mu`, `nu`, `acc_grads` (dicts by parameter name, the
+        state's own tensors) and the four counts. The model's compute-dtype
+        copies are not in it: they are the masters, cast."""
+        st = self.opt_state
+        return {"step": self.step,
+                "params": dict(zip(st.names, st.masters)),
+                "mu": dict(zip(st.names, st.mu)),
+                "nu": dict(zip(st.names, st.nu)),
+                "acc_grads": dict(zip(st.names, st.acc_grads)),
+                "adam_count": st.adam_count, "sched_count": st.sched_count,
+                "mini_step": st.mini_step,
+                "gradient_step": st.gradient_step}
+
     def load_state_dict(self, sd: Mapping) -> None:
-        """Load a carried-over state (`convert.from_jax_train_state`):
-        `step`, `params`, `mu`, `nu`, `acc_grads` (dicts by parameter
-        name) and the four counts. Every entry must match."""
+        """Load a state: `step`, `params` (the fp32 masters), `mu`, `nu`,
+        `acc_grads` (dicts by parameter name) and the four counts, from
+        `state_dict()` (a checkpoint, `utils.checkpoint`) or carried over
+        from the JAX package (`convert.from_jax_train_state`). Every entry
+        must match."""
         st = self.opt_state
         for key in ("params", "mu", "nu", "acc_grads"):
             got = set(sd[key])
@@ -275,8 +307,14 @@ class TrainState:
 
 
 def create_train_state(cfg: CAPEConfig, model: nn.Module,
-                       steps_per_epoch: int) -> TrainState:
-    """Build the state of a fresh run around `model` (its current
-    parameters become the fp32 masters)."""
+                       steps_per_epoch: int,
+                       masters: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> TrainState:
+    """Build the state of a fresh run around `model`: its current
+    parameters become the fp32 masters, except those `masters` gives fp32
+    values for by name (weights loaded into a bf16 model, e.g. the
+    backbone's from `models.backbone.load_torch_resnet50_npz`, keep their
+    fp32 values as the JAX package's fp32 parameters do)."""
     tx = FusedAdamW(cfg, steps_per_epoch)
-    return TrainState(step=0, model=model, tx=tx, opt_state=tx.init(model))
+    return TrainState(step=0, model=model, tx=tx,
+                      opt_state=tx.init(model, masters))

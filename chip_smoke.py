@@ -51,7 +51,18 @@ and exits non-zero at the first phase that fails:
    two micro-steps with `use_pallas_msda=True`; two each under `fused`
    and `fusedq` (48 forward and 48 backward launches of the fused
    kernels, no gather and no scatter);
-8. fp32 on the card (kernels) against the CPU (plain versions): the
+8. the training entry point at the flagship width, in this process:
+   `cli.train` with augmentation and a seeded torchvision `resnet_weights`
+   on the sized eval's tree (2 epochs of 8 micro-steps, validation on 16
+   fixed episodes), launch counts of the whole run; the loaded affines
+   frozen, the convs moved; a second run resumed from `epoch_0` (the
+   same episodes and rng states; the masters bit-exact or within a stated
+   tolerance, with the op that gives other bits named); one epoch more
+   under `fused`; `CAPEPredictor.from_checkpoint` against the model in
+   memory and `cli.evaluate` against the loop's last validation; the
+   update, epoch, validation, batch build and checkpoint times and the
+   loop's peak memory;
+9. fp32 on the card (kernels) against the CPU (plain versions): the
    encoder memory of every MSDA path, the first decode step's logits, one
    eval batch of 4 episodes scored by `evaluate_cape` (decode logits,
    counts and every keypoint's normalised distance), and
@@ -74,7 +85,9 @@ the calls of a loop) and "above the L2" where it is not. The two row
 kernels' entries also carry `library_device_ms` (the library call
 captured and replayed the same way), and the kernels the evaluation path
 runs `eval_launches` (its default run for `quad_gather`, its `fused` run
-for `fused_fwd`).
+for `fused_fwd`), the kernels the training entry point runs
+`train_loop_launches` (its auto run for `quad_gather` and `quad_scatter`,
+its `fused` epoch for `fused_fwd` and `fused_bwd`).
 """
 
 from __future__ import annotations
@@ -1474,7 +1487,409 @@ def phase_eval_sized(torch, np, model, card, root):
               f"{np.mean(r.score[1:]):.3f} a batch; shares of the wall: "
               f"waiting {share['wait']:.2f}%, decode {share['decode']:.2f}%, "
               f"scoring {share['score']:.2f}% ({card})", flush=True)
-    shutil.rmtree(root)
+
+
+#: the training entry point's run (`phase_train_loop`): `cli.train` at the
+#: `CAPEConfig()` defaults on the sized eval's tree (2 train categories and
+#: MP-100's 10 val categories of 20 images of 480 x 640): 16 episodes an
+#: epoch are 8 micro-steps of 2 episodes x 2 queries, 2 real updates
+TRAIN_LOOP_FLAGS = ["--epochs", "2", "--episodes_per_epoch", "16",
+                    "--val_episodes_per_epoch", "16", "--eval_batch_size", "8",
+                    "--fixed_val_episodes", "--num_data_threads", "4",
+                    "--print_freq", "0"]
+
+#: the largest master difference allowed between the straight run's
+#: `epoch_1` and one resumed from its `epoch_0` under `auto`, where
+#: `quad_scatter`'s fp32 sums run in another order each run: 3x the
+#: largest gap measured (1.333e-05 over four runs, NVIDIA H100 80GB HBM3)
+RESUME_AUTO_TOL = 4e-05
+
+
+def _torchvision_resnet50(np, seed):
+    """A seeded resnet50 state_dict under torchvision's key names (conv
+    weights He-scaled, BN weight/bias/running statistics), shaped from the
+    port's `ResNet50`, plus the `fc` head a real one carries."""
+    import torch.nn as nn
+
+    from cape_tpu_torch.models.backbone import FrozenAffine, ResNet50
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, m in ResNet50().named_modules():
+        tv = name.replace("downsample_conv", "downsample.0").replace(
+            "downsample_bn", "downsample.1")
+        if isinstance(m, nn.Conv2d):
+            shape = tuple(m.weight.shape)
+            sd[f"{tv}.weight"] = (rng.normal(size=shape) * np.sqrt(
+                2.0 / np.prod(shape[1:]))).astype(np.float32)
+        elif isinstance(m, FrozenAffine):
+            n = m.scale.numel()
+            sd[f"{tv}.weight"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            sd[f"{tv}.bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+            sd[f"{tv}.running_mean"] = rng.normal(0, 0.2, n).astype(np.float32)
+            sd[f"{tv}.running_var"] = rng.uniform(0.3, 2, n).astype(np.float32)
+    sd["fc.weight"] = rng.normal(size=(1000, 2048)).astype(np.float32)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+def _loop_recorder(torch, loop):
+    """A record of what `train.loop.train_loop` trains on, and the patch
+    that fills it (`train.loop.instrumented`): each train batch's episodes
+    (category ids and a digest of its query images, taken where the loop
+    validates the batch) and each micro-step's synchronised ms and the
+    device memory allocated before it."""
+    import hashlib
+    from unittest import mock
+
+    rec = types.SimpleNamespace(episodes=[], ms=[], mem=[])
+
+    def on_batch(b):
+        rec.episodes.append((b["category_ids"].tolist(), hashlib.sha1(
+            b["query_images"].tobytes()).hexdigest()))
+
+    def on_step(step, state, batch, gen):
+        torch.cuda.synchronize()
+        rec.mem.append(torch.cuda.memory_allocated())
+        t0 = time.perf_counter()
+        out = step(state, batch, gen)
+        torch.cuda.synchronize()
+        rec.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return rec, mock.patch.multiple(loop, **loop.instrumented(on_batch,
+                                                              on_step))
+
+
+def _train_run(torch, flags):
+    """`cli.train.main(flags)` in this process with its kernel launches,
+    decodes and micro-steps recorded; returns them with the result, the
+    wall and the peak device memory."""
+    from cape_tpu_torch.cli import train as cli_train
+    from cape_tpu_torch.train import loop
+
+    rec, patched = _loop_recorder(torch, loop)
+    with _recorded_decode(torch) as decodes, patched:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = cli_train.main(flags)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+    rec.res, rec.wall, rec.counts = res, wall, counts
+    rec.steps = [d["steps"] for d in decodes]
+    rec.peak = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def _master_diffs(ck, path_a, path_b):
+    """Max abs difference of every fp32 master tensor between two
+    checkpoints: (name -> difference, tensors that differ, the largest)."""
+    sa, sb = (ck.load_state(p, "cuda")["params"] for p in (path_a, path_b))
+    diffs = {n: (sa[n] - sb[n]).abs().max().item() for n in sa}
+    return diffs, sum(d > 0 for d in diffs.values()), max(diffs,
+                                                          key=diffs.get)
+
+
+def _nondeterministic_ops(torch, model, cfg, batch):
+    """Which ops of a micro-step's backward give other bits on a second
+    run from identical inputs (one batch, dropout from one seed): the
+    parameters whose gradients differ between two backward passes, those
+    that still differ under `torch.use_deterministic_algorithms` (which
+    also makes cuDNN pick deterministic algorithms; `quad_scatter` stays
+    as it is, so the two counts move with its draws), the ops PyTorch
+    flags as nondeterministic in that mode, and how many of the backward's
+    own `quad_scatter` calls give other bits when rerun on their inputs."""
+    from cape_tpu_torch.ops import gather
+    from cape_tpu_torch.train.train_step import forward_losses
+
+    params = dict(model.named_parameters())
+    calls = []
+    scatter = gather.quad_scatter
+
+    def recorded_scatter(dg, gi, n):
+        calls.append((dg.detach().clone(), gi.clone(), n))
+        return scatter(dg, gi, n)
+
+    recorded_scatter.launches = 0   # the wrapper counts on the module name
+
+    def grads(record=False):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        gather.quad_scatter = recorded_scatter if record else scatter
+        try:
+            loss = forward_losses(model, cfg, batch, gen)["total"]
+            return torch.autograd.grad(loss, list(params.values()),
+                                       allow_unused=True)
+        finally:
+            gather.quad_scatter = scatter
+
+    def differ(g1, g2):
+        return [n for n, a, b in zip(params, g1, g2)
+                if a is not None and not torch.equal(a, b)]
+
+    plain = differ(grads(record=True), grads())
+    scatter_differ = sum(not torch.equal(scatter(dg, gi, n),
+                                         scatter(dg, gi, n))
+                         for dg, gi, n in calls)
+    n_scatter = len(calls)
+    del calls
+    flagged = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = differ(grads(), grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in caught:
+        msg = str(w.message)
+        if "does not have a deterministic implementation" in msg:
+            flagged.add(msg.split(" does not have")[0])
+        elif "CuBLAS" in msg:
+            flagged.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+    return types.SimpleNamespace(differ=plain, det_differ=det,
+                                 flagged=sorted(flagged),
+                                 scatter_differ=scatter_differ,
+                                 n_scatter=n_scatter)
+
+
+def phase_train_loop(torch, np, card, root):
+    """The training entry point at the flagship width, in this process:
+    `cli.train` with augmentation and seeded `resnet_weights` on the sized
+    eval's tree (2 epochs of 8 micro-steps, validation on 16 fixed
+    episodes) and a second run resumed from its `epoch_0`; the same pair
+    under `CAPE_MSDA_GATHER=fused`; `CAPEPredictor.from_checkpoint` and
+    `cli.evaluate` on what the first run wrote. Checks the launches of
+    every run, the frozen and loaded backbone affines, the resumes, and
+    that the predictor and the evaluate CLI agree with the loop. Prints
+    the update, epoch, validation and batch build times, the checkpoint's
+    bytes and save and restore times, and the loop's peak memory."""
+    from cape_tpu_torch import CAPEConfig, CAPEPredictor
+    from cape_tpu_torch.cli import evaluate as cli_evaluate
+    from cape_tpu_torch.data.builder import build_mp100_cape
+    from cape_tpu_torch.data.episodic import EpisodicSampler, episode_batches
+    from cape_tpu_torch.models.backbone import resnet50_state_from_torchvision
+    from cape_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    split_file = os.path.join(root, "category_splits.json")
+    npz = os.path.join(root, "resnet50_seed0.npz")
+    tv = _torchvision_resnet50(np, 0)
+    np.savez(npz, **tv)
+    out = {n: os.path.join(root, f"loop_{n}")
+           for n in ("auto", "auto_resumed", "fused", "fused_resumed")}
+    common = ["--dataset_root", root, "--category_split_file", split_file,
+              "--resnet_weights", npz, *TRAIN_LOOP_FLAGS]
+
+    def resumed(straight, run, label):
+        """`run`, resumed from `straight`'s epoch_0, trained its epoch 1 on
+        the same episodes to the same rng states; the masters' differences
+        of the two epoch_1 checkpoints."""
+        check([h["epoch"] for h in run.res["history"]] == [1],
+              f"{label}: resumed epochs")
+        check(run.episodes == straight.episodes[micro:],
+              f"{label}: the resumed run trained on other episodes")
+        ends = [os.path.join(out[n], "epoch_1")
+                for n in (label, f"{label}_resumed")]
+        ma, mb = (ck.read_meta(p) for p in ends)
+        check(ma["rng_state"] == mb["rng_state"]
+              and ma["torch_rng_state"] == mb["torch_rng_state"],
+              f"{label}: rng states differ after the resumed epoch")
+        return _master_diffs(ck, *ends)
+
+    # -- the straight run: 2 epochs
+    a = _train_run(torch, common + ["--output_dir", out["auto"]])
+    state = a.res["state"]
+    model, cfg = state.model, state.model.cfg
+    check(cfg.replace(**{k: getattr(CAPEConfig(), k) for k in (
+        "epochs", "episodes_per_epoch", "val_episodes_per_epoch",
+        "num_data_threads", "resnet_weights", "dataset_root",
+        "category_split_file", "output_dir")}) == CAPEConfig(),
+        "the train CLI's config is not the flagship's")
+    micro = cfg.episodes_per_epoch // cfg.batch_size
+    n_epochs, k = cfg.epochs, cfg.accumulation_steps
+    check(len(a.ms) == n_epochs * micro and state.step == n_epochs * micro
+          and state.opt_state.gradient_step == n_epochs * micro // k,
+          f"{len(a.ms)} micro-steps recorded, state step {state.step}")
+    check(sorted(n for n in os.listdir(out["auto"]) if n.startswith("epoch_"))
+          == [f"epoch_{e}" for e in range(n_epochs)],
+          f"checkpoints written: {sorted(os.listdir(out['auto']))}")
+    hist = a.res["history"]
+    check(len(hist) == n_epochs and all(
+        np.isfinite(h["train_loss"]) for h in hist), f"history {hist}")
+    n_val = -(-cfg.val_episodes_per_epoch // cfg.eval_batch_size)
+    check(len(a.steps) == n_epochs * n_val, f"{len(a.steps)} decodes")
+    L = cfg.num_feature_levels
+    per_micro = (cfg.enc_layers + cfg.dec_layers) * L
+    enc = cfg.enc_layers * L
+    val_gathers = sum(enc + cfg.dec_layers * s for s in a.steps) \
+        + len(a.steps) * per_micro
+    _check_counts(a.counts, "the training run (auto)",
+                  quad_gather=n_epochs * micro * per_micro + val_gathers,
+                  quad_scatter=n_epochs * micro * per_micro)
+
+    # the backbone: the folded npz values are the affines' masters and did
+    # not move (frozen); a conv weight moved; the bf16 model holds the cast
+    st = state.opt_state
+    masters = dict(zip(st.names, st.masters))
+    labels = dict(zip(st.names, st.labels))
+    params = dict(model.named_parameters())
+    folded = resnet50_state_from_torchvision(model.backbone, tv)
+    affine = [n for n in folded if n.endswith((".scale", ".bias"))]
+    check(affine and all(labels[f"backbone.{n}"] == "frozen" for n in affine)
+          and all(torch.equal(masters[f"backbone.{n}"].cpu(), folded[n])
+                  for n in affine),
+          "backbone affines are not the folded weights, or moved")
+    convs = [n for n in folded if n.endswith("conv2.weight")]
+    moved = sum(not torch.equal(masters[f"backbone.{n}"].cpu(), folded[n])
+                for n in convs)
+    check(moved == len(convs), f"{moved} of {len(convs)} conv2 weights moved")
+    check(all(torch.equal(params[n], masters[n].to(params[n].dtype))
+              for n in st.names), "model weights are not the masters, cast")
+
+    updates = [sum(a.ms[i:i + k]) for i in range(0, len(a.ms), k)]
+    print(f"train loop (cli.train, flagship, augmentation, resnet_weights): "
+          f"{len(a.ms)} micro-steps, ms each (synchronised) "
+          f"{[round(t, 3) for t in a.ms]}; ms per real update "
+          f"{[round(t, 3) for t in updates]}; epochs: train wall "
+          f"{[round(h['train_s'] * 1e3, 3) for h in hist]} ms, validation "
+          f"wall {[round(h['val_s'] * 1e3, 3) for h in hist]} ms; run wall "
+          f"{a.wall:.3f} ms; decode steps {a.steps}; launches {a.counts}; "
+          f"val PCK {[h['pck'] for h in hist]} "
+          f"({hist[-1]['pck_num_correct']}/{hist[-1]['pck_num_visible']}); "
+          f"device memory before each micro-step {a.mem[::micro]} bytes "
+          f"(epoch starts); peak {a.peak} bytes ({card})", flush=True)
+
+    # -- augmented batch builds, cold, 1 and 4 loader threads: byte-equal
+    built, build_ms = {}, {}
+    for threads in (1, 4):
+        ds = build_mp100_cape("train", cfg)
+        sampler = EpisodicSampler(ds, split_file, "train",
+                                  num_queries=cfg.num_queries_per_episode)
+        t0 = time.perf_counter()
+        built[threads] = list(episode_batches(
+            ds, sampler, cfg.batch_size, 4, cfg.image_size,
+            cfg.max_support_keypoints, cfg.max_skeleton_edges,
+            np.random.default_rng(5), num_threads=threads))
+        build_ms[threads] = (time.perf_counter() - t0) * 1e3 / 4
+    check(all(_same_bytes(x, y) for x, y in zip(built[1], built[4])),
+          "augmented batches of 4 threads differ from 1 thread's")
+    del built
+    print(f"augmented train batches ({cfg.batch_size} episodes x "
+          f"{cfg.num_queries_per_episode + 1} images of 480 x 640, cold "
+          f"dataset): build ms per batch 1 thread {build_ms[1]:.3f}, 4 "
+          f"threads {build_ms[4]:.3f} ({card})", flush=True)
+
+    # -- resume from epoch_0 into another directory: epoch 1 again. Under
+    # auto `quad_scatter`'s fp32 sums run in another order each run, so
+    # the masters are held to RESUME_AUTO_TOL and the op is named
+    b = _train_run(torch, common + ["--output_dir", out["auto_resumed"],
+                                    "--resume",
+                                    os.path.join(out["auto"], "epoch_0")])
+    diffs, n_diff, worst = resumed(a, b, "auto")
+    if n_diff == 0:
+        print(f"resume (auto): bit-exact on the card (episodes, both rng "
+              f"states and all {len(diffs)} master tensors)", flush=True)
+    else:
+        nd = _nondeterministic_ops(
+            torch, b.res["state"].model, cfg,
+            _train_batch(np, cfg, np.random.default_rng(3)))
+        ops = nd.flagged + ([f"quad_scatter ({nd.scatter_differ} of "
+                             f"{nd.n_scatter} calls)"]
+                            if nd.scatter_differ else [])
+        print(f"resume (auto): not bit-exact on the card: {n_diff} of "
+              f"{len(diffs)} master tensors differ, the most {worst} by "
+              f"{diffs[worst]:.3e} (tolerance {RESUME_AUTO_TOL:.3e}). A "
+              f"backward twice from identical inputs differs in "
+              f"{len(nd.differ)} of {len(diffs)} gradients (first: "
+              f"{nd.differ[:4]}), under torch.use_deterministic_algorithms "
+              f"in {len(nd.det_differ)} ({nd.det_differ[:4]}); ops giving "
+              f"other bits run to run: {ops}", flush=True)
+        check(diffs[worst] <= RESUME_AUTO_TOL,
+              "resumed masters beyond the tolerance")
+        check(ops, "the resume differs, yet no op was found that gives "
+              "other bits run to run")
+    del b
+
+    # -- the same straight run and resume under `fused`, whose backwards
+    # write the same bits every run: the resumed masters must be bit-equal
+    with selection(CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0"):
+        f = _train_run(torch, common + ["--output_dir", out["fused"]])
+        del f.res["state"]
+        fr = _train_run(torch, common + [
+            "--output_dir", out["fused_resumed"], "--resume",
+            os.path.join(out["fused"], "epoch_0")])
+        del fr.res["state"]
+    for run, epochs, label in ((f, n_epochs, "fused"),
+                               (fr, 1, "fused, resumed")):
+        fwd = sum(enc + cfg.dec_layers * L * s for s in run.steps) \
+            + len(run.steps) * per_micro
+        _check_counts(run.counts, f"the training run ({label})",
+                      fused_fwd=epochs * micro * per_micro + fwd,
+                      fused_bwd=epochs * micro * per_micro)
+    fdiffs, f_diff, fworst = resumed(f, fr, "fused")
+    print(f"fused: {len(f.ms)} micro-steps, ms each "
+          f"{[round(t, 3) for t in f.ms]}; decode steps {f.steps}; launches "
+          f"{f.counts}; peak {f.peak} bytes; resumed from epoch_0: "
+          + ("bit-exact (episodes, both rng states and all "
+             f"{len(fdiffs)} master tensors)" if f_diff == 0 else
+             f"{f_diff} master tensors differ, the most {fworst} by "
+             f"{fdiffs[fworst]:.3e}") + f" ({card})", flush=True)
+    check(f_diff == 0, "under fused the resumed masters are not bit-equal "
+          "to the straight run's")
+
+    # -- from_checkpoint and the evaluate CLI on the straight run's epoch_1
+    last = os.path.join(out["auto"], f"epoch_{n_epochs - 1}")
+    imgs, boxes = _requests(np, 1, 8)[0]
+    proto = np.asarray(PROTO_17, np.float32)
+    mem = CAPEPredictor(cfg, model).predict(imgs, proto, SKELETON_17,
+                                            bboxes=boxes)
+    loaded = CAPEPredictor.from_checkpoint(last)
+    got = loaded.predict(imgs, proto, SKELETON_17, bboxes=boxes)
+    _check_results(np, got, 8, 17)
+    check(all(np.array_equal(x["keypoints"], y["keypoints"])
+              and x["length"] == y["length"] for x, y in zip(got, mem)),
+          "from_checkpoint predicts other keypoints than the model in memory")
+    del loaded
+    stats = cli_evaluate.main([
+        "--checkpoint", last, "--split", "val", "--num_episodes",
+        str(cfg.val_episodes_per_epoch), "--seed", str(cfg.val_seed),
+        "--eval_batch_size", str(cfg.eval_batch_size),
+        "--output_dir", os.path.join(root, "metrics")])
+    check((stats["pck_num_correct"], stats["pck_num_visible"]) == (
+        hist[-1]["pck_num_correct"], hist[-1]["pck_num_visible"]),
+        f"cli.evaluate scored {stats['pck_num_correct']}/"
+        f"{stats['pck_num_visible']}, the loop's last validation "
+        f"{hist[-1]['pck_num_correct']}/{hist[-1]['pck_num_visible']}")
+    print(f"from_checkpoint: 8 keypoint sets equal to the in-memory "
+          f"model's; cli.evaluate on {last.rsplit(os.sep, 1)[-1]}: "
+          f"{stats['pck_num_correct']}/{stats['pck_num_visible']}, the "
+          f"loop's last validation's", flush=True)
+
+    # -- a checkpoint's bytes, save and restore, on the straight run's state
+    mgr = ck.CheckpointManager(os.path.join(root, "timed"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_epoch(state, 0, cfg, 0.0, 0)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(os.path.join(mgr.latest(), ck.STATE_FILE))
+    t0 = time.perf_counter()
+    mgr.restore(mgr.latest(), state)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    print(f"checkpoint: {nbytes} bytes (state.pt: fp32 masters, mu, nu, "
+          f"acc_grads of {sum(m.numel() for m in st.masters)} parameters); "
+          f"save {save_ms:.3f} ms, restore {restore_ms:.3f} ms ({card})",
+          flush=True)
+    launches = {"quad_gather": a.counts["quad_gather"],
+                "quad_scatter": a.counts["quad_scatter"],
+                "fused_fwd": f.counts["fused_fwd"],
+                "fused_bwd": f.counts["fused_bwd"]}
+    del state, model, a
+    print(f"phase_train_loop wall {(time.perf_counter() - t_phase):.3f} s",
+          flush=True)
+    return launches
 
 
 def _eval_fp32(torch, np, m32, m_cpu, ev):
@@ -2059,12 +2474,14 @@ def main() -> int:
             torch, np, card)
         ev, eval_counts, eval_fused_counts = phase_eval(
             torch, np, model, card, tree.name)
-        phase_eval_sized(torch, np, model, card,
-                         os.path.join(tree.name, "sized"))
+        sized = os.path.join(tree.name, "sized")
+        phase_eval_sized(torch, np, model, card, sized)
         train_model, train_counts = phase_training(torch, np, card)
         phase_training_pallas(torch, np, train_model, card)
         fused_bwd_counts = phase_training_fused(torch, np, train_model, card)
         del train_model
+        loop_counts = phase_train_loop(torch, np, card, sized)
+        shutil.rmtree(sized)
         m32, m_cpu = phase_fp32_checks(torch, np, model)
         _eval_fp32(torch, np, m32, m_cpu, ev)
         del m32, m_cpu
@@ -2086,13 +2503,16 @@ def main() -> int:
                 "quadfused_fwd": fused_counts["quadfused_fwd"],
                 "fused_bwd": fused_bwd_counts["fused"],
                 "quadfused_bwd": fused_bwd_counts["quadfused"]}
-    # and the evaluation path's runs (default path, then `fused`)
+    # and the evaluation path's runs (default path, then `fused`), and the
+    # training entry point's (its run under auto, then its `fused` epoch)
     eval_launches = {"quad_gather": eval_counts["quad_gather"],
                      "fused_fwd": eval_fused_counts["fused_fwd"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in eval_launches:
             k["eval_launches"] = eval_launches[k["name"]]
+        if k["name"] in loop_counts:
+            k["train_loop_launches"] = loop_counts[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -313,13 +313,17 @@ def test_lru_bytes_matches_jax():
     assert (a.bytes, list(a.d)) == (b.bytes, list(b.d))
 
 
-def test_augment_true_raises(paths):
-    """The port has no train-time augmentation yet and refuses it."""
+def test_augment_true_raises(paths, monkeypatch):
+    """The train split augments, which requires cv2: where cv2 is missing a
+    record raises and names it (the JAX package would skip the affine and
+    the blurs in silence)."""
     tok = port_builder.DiscreteTokenizer(10, 24)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_mp100.MP100Dataset(paths["img_dir"], paths["train_ann"], tok, 64)
-    with pytest.raises(NotImplementedError, match="train_augment"):
-        _dataset(PORT, paths, "train")
+    ds = port_mp100.MP100Dataset(paths["img_dir"], paths["train_ann"], tok, 64)
+    assert ds.augment and _dataset(PORT, paths, "train").augment
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="requires cv2"):
+        ds.get_record(0, np.random.default_rng(0))
+    monkeypatch.undo()
     # with augmentation off the train split loads like the JAX package's
     jd = _dataset(JAX, paths, "train", disable_augment=True)
     pd = _dataset(PORT, paths, "train", disable_augment=True)

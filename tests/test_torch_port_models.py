@@ -289,8 +289,9 @@ def test_from_jax_params_rejects_bad_trees(tiny, fault):
 def test_port_imports_neither_jax_nor_cape_tpu():
     """Every submodule imports with jax, flax and optax blocked, the
     training subpackages `losses/` and `train/`, the fused MSDA kernels'
-    module and the evaluation path's `data/`, `eval/` and `utils/` modules
-    included, and no
+    module, the evaluation path's `data/`, `eval/` and `utils/` modules and
+    the training entry point's `native`, `utils.checkpoint`, `train.loop`
+    and `cli.*` included, and no
     `cape_tpu.` module of the JAX package gets loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -303,7 +304,9 @@ def test_port_imports_neither_jax_nor_cape_tpu():
         "    importlib.import_module(m.name)\n"
         "for m in ('losses.criterion', 'train.state', 'train.train_step',\n"
         "          'ops.msda_fused', 'data.episodic', 'data.image',\n"
-        "          'eval.audit', 'utils.logging'):\n"
+        "          'eval.audit', 'utils.logging', 'native',\n"
+        "          'utils.checkpoint', 'train.loop', 'cli.train',\n"
+        "          'cli.evaluate', 'cli.visualize'):\n"
         "    assert 'cape_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'cape_tpu' or "
         "k.startswith('cape_tpu.')]\n"

@@ -7,8 +7,26 @@ import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from cape_tpu.config import tiny_test_config as jax_tiny_config
+
+#: torch threads of a test module that imports `few_torch_threads`
+TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """At most `TORCH_THREADS` torch threads while the importing module
+    runs: the tier-1 run has several workers on the same cores, and eight
+    threads a worker oversubscribe them (a tiny training loop then takes
+    20x as long)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, TORCH_THREADS))
+    yield
+    torch.set_num_threads(n)
+
 
 #: (coord, sep, eos) logit shift of the last class head, see `jax_tiny`
 CLASS_BIAS_SHIFT = (1.0, 0.0, 2.2)
@@ -115,3 +133,73 @@ def train_batch(cfg, batch: int, seed: int = 0, n_kpts: int = 5):
     targets = {k: np.stack([t[k] for t in tg]) for k in tg[0]}
     return {"query_images": imgs, "support_coords": sc, "support_mask": sm,
             "skeleton_edges": se, "targets": targets}
+
+
+def torchvision_state(backbone, seed, in_channels=3):
+    """A seeded resnet50 state_dict under torchvision's names, shaped like
+    `backbone` (a port `ResNet50`), with the `fc` head and the BN counters
+    a real one carries."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, w):
+        shape = tuple(w.shape)
+        if key == "conv1.weight":
+            shape = (shape[0], in_channels) + shape[2:]
+        fan_in = int(np.prod(shape[1:]))
+        sd[key] = (rng.normal(size=shape) * np.sqrt(2 / fan_in)).astype(
+            np.float32)
+
+    def bn(prefix, n):
+        sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        sd[f"{prefix}.bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+        sd[f"{prefix}.running_mean"] = rng.normal(0, 0.2, n).astype(np.float32)
+        sd[f"{prefix}.running_var"] = rng.uniform(0.3, 2.0, n).astype(
+            np.float32)
+        sd[f"{prefix}.num_batches_tracked"] = np.array(1000, np.int64)
+
+    conv("conv1.weight", backbone.conv1.weight)
+    bn("bn1", backbone.bn1.scale.numel())
+    for li in range(4):
+        for bi, blk in enumerate(getattr(backbone, f"layer{li + 1}")):
+            t = f"layer{li + 1}.{bi}"
+            for c in ("conv1", "conv2", "conv3"):
+                conv(f"{t}.{c}.weight", getattr(blk, c).weight)
+                bn(f"{t}.bn{c[-1]}", getattr(blk, c).weight.shape[0])
+            if blk.downsample_conv is not None:
+                conv(f"{t}.downsample.0.weight", blk.downsample_conv.weight)
+                bn(f"{t}.downsample.1", blk.downsample_conv.weight.shape[0])
+    sd["fc.weight"] = rng.normal(size=(1000, 2048)).astype(np.float32)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+def record_loop(mp, loop_mod, to_host):
+    """Record every train batch (where the loop validates it, on the host)
+    and every step's metrics of `loop_mod.train_loop`."""
+    from cape_tpu_torch.train import loop as port_loop
+
+    rec = {"batches": [], "metrics": [], "init": None}
+
+    def step(inner, state, batch, rng):
+        state, m = inner(state, batch, rng)
+        host = {k: np.atleast_1d(to_host(v)) for k, v in m.items()}
+        for j in range(len(host["total"])):   # per micro-step
+            rec["metrics"].append({k: float(v[j]) for k, v in host.items()})
+        return state, m
+
+    for name, stand_in in port_loop.instrumented(
+            rec["batches"].append, step, loop_mod).items():
+        mp.setattr(loop_mod, name, stand_in)
+    return rec
+
+
+def same_bytes(a, b, where=""):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            same_bytes(a[k], b[k], f"{where}/{k}")
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, where
+    assert a.tobytes() == b.tobytes(), where
