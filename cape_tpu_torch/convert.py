@@ -18,6 +18,17 @@ port's attribute names:
     decoder/coords_head_i/Dense_k            -> decoder.coords_heads.i.layers.k
     backbone/layerL_blockB/...               -> backbone.layerL.B....
     row_embed|col_embed (learned PE tables)   -> row_embed|col_embed
+
+and inside a decoder layer, for the variants (v3's `cross_attn` is a
+`BiXAttnBlock`, its last layer's a `CAOneSidedBlock` with the block's x
+side names):
+
+    cross_attn/BiXAttn_0|MultiHeadAttention_0 -> cross_attn.attn
+    cross_attn/LayerNorm_0|1|2|3             -> cross_attn.norm_x|norm_y|
+                                                mlp_x_norm|mlp_y_norm
+    cross_attn/Dense_0|Dense_1               -> cross_attn.mlp_x_fc1|mlp_x_fc2
+    point_sampler/proj_q_i (and conv_offset_a_i, offset_norm_i,
+        conv_offset_b_i)                     -> point_sampler.proj_q.i (...)
 """
 
 from __future__ import annotations
@@ -53,6 +64,19 @@ _PATH_RULES = (
      r"decoder/coords_heads/\1/layers/\2/"),
 )
 
+#: rules applied after the first-match rules above, each wherever it matches
+_INNER_RULES = (
+    (r"/cross_attn/(?:BiXAttn_0|MultiHeadAttention_0)/", "/cross_attn/attn/"),
+    (r"/cross_attn/LayerNorm_0/", "/cross_attn/norm_x/"),
+    (r"/cross_attn/LayerNorm_1/", "/cross_attn/norm_y/"),
+    (r"/cross_attn/LayerNorm_2/", "/cross_attn/mlp_x_norm/"),
+    (r"/cross_attn/LayerNorm_3/", "/cross_attn/mlp_y_norm/"),
+    (r"/cross_attn/Dense_0/", "/cross_attn/mlp_x_fc1/"),
+    (r"/cross_attn/Dense_1/", "/cross_attn/mlp_x_fc2/"),
+    (r"/point_sampler/(proj_q|conv_offset_a|offset_norm|conv_offset_b)_(\d+)/",
+     r"/point_sampler/\1/\2/"),
+)
+
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "embedding": "weight", "frozen_affine_scale": "scale",
                "frozen_affine_bias": "bias"}
@@ -76,6 +100,8 @@ def port_key(jax_path: str) -> str:
         path, n = re.subn(pat, rep, path)
         if n:
             break
+    for pat, rep in _INNER_RULES:
+        path = re.sub(pat, rep, path)
     *parents, leaf = path.split("/")
     if parents:
         leaf = _LEAF_NAMES.get(leaf, leaf)

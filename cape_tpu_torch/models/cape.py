@@ -12,6 +12,11 @@ decoder, plus the autoregressive decode loop: the port of
   (`train.state`), as flax keeps fp32 parameters and computes in bf16.
 - `forward` is the teacher-forced training call; dropout draws from the
   `torch.Generator` it is given, and `generator=None` is deterministic.
+- Every config the JAX package builds, builds here: the decoder layer
+  variants v2-v6 and `dec_attn_concat_src` (teacher-forced only: their
+  decode raises the JAX package's `ValueError`), `dec_qkv_proj=False`,
+  and the legacy `SupportPoseGraphEncoder` (`use_geometric_encoder=
+  False`).
 - `autoregressive_decode` generates up to `seq_len` tokens with static KV
   caches and on-device re-tokenization and token-type branching, exiting
   once every sample has emitted EOS. The JAX `while_loop` becomes a Python
@@ -32,10 +37,10 @@ from ..data.tokenizer import DiscreteTokenizer
 from ..device import DeviceLike, resolve_device
 from .backbone import ResNet50
 from .decoder import Decoder
-from .deformable import DeformableEncoder, MSDeformAttn
+from .deformable import DeformableEncoder
 from .layers import default_init_, normal_, uniform_, xavier_uniform_, zeros_
 from .position_encoding import image_sine_pe_2d
-from .support_encoder import GeometricSupportEncoder
+from .support_encoder import GeometricSupportEncoder, SupportPoseGraphEncoder
 
 
 def level_shapes(image_size: int, num_levels: int,
@@ -49,25 +54,13 @@ def level_shapes(image_size: int, num_levels: int,
 
 
 def _unsupported(cfg: CAPEConfig) -> Optional[str]:
-    """The config options the port does not have (yet)."""
+    """The config options the JAX package itself refuses to build."""
     if cfg.support_fusion_method != "cross_attention":
         return (f"support_fusion_method={cfg.support_fusion_method!r}: only "
                 "'cross_attention' is functional (matches the reference)")
     if cfg.position_embedding not in ("sine", "v2", "learned", "v3"):
         return (f"position_embedding={cfg.position_embedding!r}: 'sine'/'v2' "
                 "or 'learned'/'v3' (reference position_encoding.py:76-81)")
-    if not cfg.use_geometric_encoder:
-        return "use_geometric_encoder=False (SupportPoseGraphEncoder) is not ported"
-    if cfg.dec_layer_type != "v1":
-        return (f"dec_layer_type={cfg.dec_layer_type!r}: the port has the v1 "
-                "decoder layer only")
-    if cfg.dec_attn_concat_src:
-        return ("dec_attn_concat_src (a train-only option of the JAX "
-                "package) is not ported yet: it is queued in ROADMAP.md")
-    if not cfg.dec_qkv_proj:
-        return ("dec_qkv_proj=False (identity q/k/v pre-projections, a "
-                "train-only option) is not ported yet: it is queued in "
-                "ROADMAP.md")
     return None
 
 
@@ -112,13 +105,21 @@ class CAPE(nn.Module):
             n_points=cfg.dec_n_points, vocab_size=cfg.token_vocab_size,
             seq_len=cfg.seq_len, num_classes=cfg.num_token_classes,
             pad_id=cfg.num_bins * cfg.num_bins + 3,
-            use_pallas=cfg.use_pallas_msda, query_pos_type=cfg.query_pos_type,
+            use_pallas=cfg.use_pallas_msda, layer_type=cfg.dec_layer_type,
+            attn_concat_src=cfg.dec_attn_concat_src,
+            qkv_proj=cfg.dec_qkv_proj, query_pos_type=cfg.query_pos_type,
             poly_refine=cfg.with_poly_refine)
-        self.support_encoder = GeometricSupportEncoder(
-            d, cfg.support_encoder_layers, cfg.nheads, cfg.dim_feedforward,
-            dropout=cfg.dropout, use_gcn=cfg.use_gcn_preenc,
-            num_gcn_layers=cfg.num_gcn_layers,
-            max_seq_pe=max(cfg.max_support_keypoints, 100))
+        if cfg.use_geometric_encoder:
+            self.support_encoder = GeometricSupportEncoder(
+                d, cfg.support_encoder_layers, cfg.nheads,
+                cfg.dim_feedforward, dropout=cfg.dropout,
+                use_gcn=cfg.use_gcn_preenc, num_gcn_layers=cfg.num_gcn_layers,
+                max_seq_pe=max(cfg.max_support_keypoints, 100))
+        else:
+            # the legacy encoder path (`cape_model.py:44-51`)
+            self.support_encoder = SupportPoseGraphEncoder(
+                d, cfg.support_encoder_layers, cfg.nheads,
+                cfg.dim_feedforward, dropout=cfg.dropout)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         default_init_(self, generator)
@@ -137,11 +138,14 @@ class CAPE(nn.Module):
             uniform_(self.col_embed, g)
 
     def _cast(self, dtype: torch.dtype) -> None:
-        """Cast to the compute dtype, keeping the fp32 islands in fp32."""
+        """Cast to the compute dtype, keeping the fp32 islands in fp32: every
+        sampling-offset projection (MSDA's, and v4's prefix sampler's) and
+        the decoder's anchors."""
         self.to(dtype)
         for m in self.modules():
-            if isinstance(m, MSDeformAttn):
-                m.sampling_offsets.float()
+            offsets = getattr(m, "sampling_offsets", None)
+            if isinstance(offsets, nn.Module):
+                offsets.float()
         self.decoder.query_embed.data = self.decoder.query_embed.data.float()
 
     # ------------------------------------------------------------------

@@ -15,8 +15,14 @@ full sequence under an additive causal mask (training, with dropout when a
 generator is passed), and `forward_step`, one token against the KV caches
 (serving). With `CAPE_DECODE_PREQUAD=0` the decode keeps each layer's
 plain projected value instead of its quad slab and every step runs
-`ms_deform_attn_core`, where every MSDA formulation is selectable. The
-v2-v6 layer variants are not ported yet.
+`ms_deform_attn_core`, where every MSDA formulation is selectable.
+
+`Decoder(layer_type=...)` also builds the experimental layers v2-v6 of
+`decoder_variants.py`, and the v1 options `attn_concat_src` (the raw
+encoder memory prepended to self-attention's K/V) and `qkv_proj=False`
+(identity pre-projections). v2-v6 and `attn_concat_src` run
+teacher-forced only: the decode refuses them with the JAX package's
+`ValueError`.
 """
 
 from __future__ import annotations
@@ -30,9 +36,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import MultiHeadAttention
+from .decoder_variants import (DecoderLayerV2, DecoderLayerV3,
+                               DecoderLayerVC, _prefix_mask)
 from .deformable import MSDeformAttn
 from .layers import Dense, LayerNorm, dropout, normal_, zeros_
 from .position_encoding import query_sine_embed
+
+#: decoder-layer variants (`deformable_transformer_v2.py:76-115` dispatch).
+#: v1 is the flagship CAPE layer; v2-v6 are the reference's experimental,
+#: support-free layers (see `decoder_variants.py`).
+LAYER_TYPES = ("v1", "v2", "v3", "v4", "v41", "v5", "v6")
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -72,13 +85,21 @@ class LayerCache(NamedTuple):
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
                  dropout: float = 0.1, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, use_pallas: bool = False):
+                 n_points: int = 4, use_pallas: bool = False,
+                 qkv_proj: bool = True, concat_src: bool = False):
         super().__init__()
         self.dropout = dropout
-        # q/k/v pre-projections before self-attention (`dtv2:276-282`)
-        self.attn_q = Dense(d_model, d_model, bias=False)
-        self.attn_k = Dense(d_model, d_model, bias=False)
-        self.attn_v = Dense(d_model, d_model, bias=False)
+        # q/k/v pre-projections before self-attention; identities without
+        # parameters when disabled, as the reference builds them
+        # (`dtv2:276-282`)
+        def proj():
+            return (Dense(d_model, d_model, bias=False) if qkv_proj
+                    else nn.Identity())
+
+        self.attn_q, self.attn_k, self.attn_v = proj(), proj(), proj()
+        # prepend the raw encoder memory to self-attention's K/V
+        # (`--dec_attn_concat_src`, `dtv2:333-337`); teacher-forced only
+        self.concat_src = concat_src
         self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.norm2 = LayerNorm(d_model)
         self.support_attn = MultiHeadAttention(d_model, n_heads, dropout)
@@ -141,8 +162,14 @@ class DecoderLayer(nn.Module):
     ) -> torch.Tensor:
         """The full teacher-forced sequence under the causal mask."""
         q = self.attn_q(tgt) + query_pos
-        k, v = self.self_attn.project_kv_pre(self.attn_k(tgt),
-                                             self.attn_v(tgt))
+        k_in, v_in = self.attn_k(tgt), self.attn_v(tgt)
+        if self.concat_src:
+            # the RAW memory goes in before the attention's own input
+            # projections (`dtv2:333-337`); the prefix is always attendable
+            k_in = torch.cat([memory, k_in], dim=1)
+            v_in = torch.cat([memory, v_in], dim=1)
+            causal_mask = _prefix_mask(causal_mask, memory.shape[1])
+        k, v = self.self_attn.project_kv_pre(k_in, v_in)
         t2 = self.self_attn.attend(q, k, v, attn_mask=causal_mask,
                                    generator=generator)
         tgt = self.norm2(tgt + dropout(t2, self.dropout, generator))
@@ -186,20 +213,25 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Token embedding + N v1 decoder layers + per-layer refinement heads."""
+    """Token embedding + N decoder layers + per-layer refinement heads."""
 
     def __init__(self, num_layers: int = 6, d_model: int = 256,
                  d_ffn: int = 1024, dropout: float = 0.1, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4, vocab_size: int = 1940,
                  seq_len: int = 200, num_classes: int = 3,
                  pad_id: int = 1939, use_pallas: bool = False,
-                 query_pos_type: str = "sine",
+                 layer_type: str = "v1", attn_concat_src: bool = False,
+                 qkv_proj: bool = True, query_pos_type: str = "sine",
                  poly_refine: bool = True):
         super().__init__()
         if query_pos_type not in ("sine", "none"):
             raise ValueError(
                 f"query_pos_type={query_pos_type!r}: the reference decoder "
                 "supports 'sine' and 'none' only")
+        if layer_type not in LAYER_TYPES:
+            raise ValueError(f"layer_type={layer_type!r}: expected one of "
+                             f"{LAYER_TYPES} (dtv2:76-115)")
+        self.layer_type, self.attn_concat_src = layer_type, attn_concat_src
         self.num_layers, self.d_model = num_layers, d_model
         self.n_levels, self.n_heads = n_levels, n_heads
         self.pad_id = pad_id
@@ -213,10 +245,29 @@ class Decoder(nn.Module):
         if query_pos_type == "sine":
             self.pos_trans = Dense(d_model, d_model)
             self.pos_trans_norm = LayerNorm(d_model)
-        self.layers = nn.ModuleList([
-            DecoderLayer(d_model, d_ffn, dropout, n_levels, n_heads,
-                         n_points, use_pallas=use_pallas)
-            for _ in range(num_layers)])
+        # the reference builder drops the pre-projections whenever a prefix
+        # is prepended (`dtv2:80`)
+        use_qkv = qkv_proj and not attn_concat_src
+        attn = (d_model, d_ffn, dropout, n_levels, n_heads, n_points)
+        if layer_type == "v1":
+            layers = [DecoderLayer(*attn, use_pallas=use_pallas,
+                                   qkv_proj=use_qkv,
+                                   concat_src=attn_concat_src)
+                      for _ in range(num_layers)]
+        elif layer_type == "v2":
+            layers = [DecoderLayerV2(*attn, use_pallas=use_pallas)
+                      for _ in range(num_layers)]
+        elif layer_type == "v3":
+            layers = [DecoderLayerV3(d_model, d_ffn, dropout, n_heads,
+                                     is_last=(i == num_layers - 1))
+                      for i in range(num_layers)]
+        else:
+            layers = [DecoderLayerVC(layer_type, *attn,
+                                     attn_concat_src=attn_concat_src,
+                                     use_qkv_proj=use_qkv,
+                                     use_pallas=use_pallas)
+                      for _ in range(num_layers)]
+        self.layers = nn.ModuleList(layers)
         self.class_heads = nn.ModuleList(
             [Dense(d_model, num_classes) for _ in range(num_layers)])
         # without poly_refine only the last layer's head exists (the JAX
@@ -304,13 +355,41 @@ class Decoder(nn.Module):
         for lid, layer in enumerate(self.layers):
             query_pos = self._query_pos(ref)
             ref_input = ref[:, :, None, :].expand(B, L, self.n_levels, 2)
-            x = layer.forward_train(x, query_pos, ref_input, memory,
-                                    spatial_shapes, causal, support_features,
-                                    support_mask, generator)
+            if self.layer_type == "v1":
+                x = layer.forward_train(x, query_pos, ref_input, memory,
+                                        spatial_shapes, causal,
+                                        support_features, support_mask,
+                                        generator)
+            elif self.layer_type == "v3":
+                # v3 updates the memory too; it threads through the stack
+                # (`dtv2:1092-1093`)
+                x, memory = layer(x, query_pos, ref_input, memory,
+                                  spatial_shapes, causal, generator)
+            else:
+                x = layer(x, query_pos, ref_input, memory, spatial_shapes,
+                          causal, generator)
             ref = self._refine(lid, x, ref)
             classes.append(self.class_heads[lid](x))
             refs.append(ref)
         return torch.stack(classes), torch.stack(refs)
+
+    def _require_v1(self, what: str):
+        """The JAX package's refusal (`cape_tpu/models/decoder.py:432-447`),
+        with its messages."""
+        if self.layer_type != "v1":
+            raise ValueError(
+                f"{what} requires layer_type='v1': the v2-v6 variants are "
+                "teacher-forced-only experimental layers, as in the "
+                "reference (they crash on its CAPE/decode path — "
+                "dtv2:1085-1091 passes support kwargs their forwards do "
+                "not accept; v2/v3 also lack KV caches)")
+        if self.attn_concat_src:
+            raise ValueError(
+                f"{what} does not support attn_concat_src: prepending the "
+                "full encoder memory to every self-attention step would "
+                "grow each decode step's keys from L to S+L (the reference "
+                "pays this, dtv2:333-337); train/eval this experimental "
+                "flag teacher-forced only")
 
     def precompute_static(self, memory, support_features, spatial_shapes):
         """Per-layer quad slabs of the projected memory, and support K/V:
@@ -321,6 +400,7 @@ class Decoder(nn.Module):
         decode step runs `ms_deform_attn_core` on it: a quarter of the
         cache, a repack per step on the quad-row path, and every MSDA
         formulation selectable."""
+        self._require_v1("autoregressive decode (precompute_static)")
         if os.environ.get("CAPE_DECODE_PREQUAD", "1") == "0":
             mem_values = [l.memory_value(memory) for l in self.layers]
         else:

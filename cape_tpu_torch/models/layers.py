@@ -124,3 +124,10 @@ def default_init_(module: nn.Module, g: torch.Generator) -> None:
         init = getattr(m, "init_weights", None)
         if init is not None:
             init(g)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` that casts its input to the weight dtype (flax Conv)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))

@@ -1,12 +1,17 @@
-"""Geometric support encoder: the port of `cape_tpu.models.support_encoder`.
+"""Support encoders: the port of `cape_tpu.models.support_encoder`.
 
-Coordinate MLP + 2D sine PE of (x, y) + 1D sequence PE -> optional GCN
-pre-encoding over the skeleton adjacency -> N post-LN transformer encoder
-layers with key-padding masking. A sample whose keypoints are all masked
-gets zeros (the finite NEG_INF masking keeps its rows finite until then).
+`GeometricSupportEncoder`, the shipped path: coordinate MLP + 2D sine PE
+of (x, y) + 1D sequence PE -> optional GCN pre-encoding over the skeleton
+adjacency -> N post-LN transformer encoder layers with key-padding
+masking. A sample whose keypoints are all masked gets zeros (the finite
+NEG_INF masking keeps its rows finite until then).
+
+`SupportPoseGraphEncoder`, the legacy encoder (`use_geometric_encoder=
+False`): coordinate MLP, a binary edge-presence embedding scaled by the
+node degree / 10, 1D PE, transformer layers, final LayerNorm.
+
 Dropout (attention weights, residual branches, FFN) acts when a training
-call passes a generator. The legacy `SupportPoseGraphEncoder` waits for a
-later slice.
+call passes a generator.
 """
 
 from __future__ import annotations
@@ -105,3 +110,54 @@ class GeometricSupportEncoder(nn.Module):
         all_masked = mask.all(dim=1)
         return torch.where(all_masked[:, None, None],
                            torch.zeros((), dtype=h.dtype, device=h.device), h)
+
+
+class SupportPoseGraphEncoder(nn.Module):
+    """Legacy support encoder (`models/support_encoder.py:8-133`), selected
+    by the reference when `--use_geometric_encoder` is off.
+
+    Mask polarity: the reference inverted the support mask before using it
+    as the key-padding mask, so it attended to INVALID keypoints. The JAX
+    package (and the port) apply the framework's convention instead: True =
+    invalid = ignored.
+    """
+
+    def __init__(self, hidden_dim: int = 256, num_layers: int = 3,
+                 nhead: int = 8, dim_feedforward: int = 1024,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.coord_mlp_0 = Dense(2, hidden_dim)
+        self.coord_mlp_1 = Dense(hidden_dim, hidden_dim)
+        self.edge_embedding = nn.Embedding(2, hidden_dim)
+        self.coord_edge_proj = Dense(2 * hidden_dim, hidden_dim)
+        self.layers = nn.ModuleList(
+            [TransformerEncoderLayer(hidden_dim, nhead, dim_feedforward,
+                                     dropout)
+             for _ in range(num_layers)])
+        self.final_norm = LayerNorm(hidden_dim)
+
+    def forward(self, coords: torch.Tensor, mask: torch.Tensor,
+                skeleton_edges: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """coords: (B, N, 2); mask: (B, N) True=invalid; skeleton_edges:
+        (B, E, 2) int, -1 padded, 0-indexed (the data layer normalizes
+        COCO's 1-indexed skeletons at load, so nothing shifts here)."""
+        B, N, _ = coords.shape
+        h = self.coord_mlp_1(F.relu(self.coord_mlp_0(coords)))
+
+        if skeleton_edges is not None:
+            adj = adj_from_skeleton(N, skeleton_edges, torch.zeros_like(mask))
+            # the row-normalized channel is > 0 exactly where an edge is
+            binary = (adj[:, 1] > 0).float()
+            degree = binary.sum(dim=2)
+            edge_emb = self.edge_embedding((degree > 0).long())
+            scale = degree.clamp(min=1.0)[..., None] / 10.0
+            combined = torch.cat([h, edge_emb * scale.to(h.dtype)], dim=-1)
+            h = self.coord_edge_proj(combined)
+
+        pe = interleaved_1d_table(max(N, 64), self.hidden_dim)[:N]
+        h = h + torch.as_tensor(pe, dtype=h.dtype, device=h.device)
+        for layer in self.layers:
+            h = layer(h, key_padding_mask=mask, generator=generator)
+        return self.final_norm(h)

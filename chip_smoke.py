@@ -62,7 +62,23 @@ and exits non-zero at the first phase that fails:
    memory and `cli.evaluate` against the loop's last validation; the
    update, epoch, validation, batch build and checkpoint times and the
    loop's peak memory;
-9. fp32 on the card (kernels) against the CPU (plain versions): the
+9. the model variants at the flagship width (`phase_variants`; no lr
+   warmup): v2, v3, v4, v41, v5, v6 and v1, each with
+   `dec_attn_concat_src`, take 4 micro-steps (one real update; 48 gathers
+   and 48 scatters each, 24 for v3, whose decoder has no MSDA), every
+   trained parameter moves, and their decode raises the JAX package's
+   ValueError; v2 and v3 take 2 micro-steps under `fused` (48/24 forward
+   and backward launches, no gather); the legacy support encoder and
+   `dec_qkv_proj=False` answer a request of 8 (enc + dec x steps gathers)
+   and take 4 micro-steps; the fp32 loss and gradients of v2, v3, v41 and
+   the legacy encoder on the card against fp64 on the CPU, at the reduced
+   config of phase 10; a
+   synthetic reference checkpoint (random tensors in the reference's key
+   layout) through `cli.import_checkpoint` into
+   `CAPEPredictor.from_checkpoint`, whose request of 8 gives the keypoints
+   of the same import loaded in memory; ms per micro-step and per update,
+   peak memory, and the phase's wall;
+10. fp32 on the card (kernels) against the CPU (plain versions): the
    encoder memory of every MSDA path, the first decode step's logits, one
    eval batch of 4 episodes scored by `evaluate_cape` (decode logits,
    counts and every keypoint's normalised distance), and
@@ -87,11 +103,15 @@ captured and replayed the same way), and the kernels the evaluation path
 runs `eval_launches` (its default run for `quad_gather`, its `fused` run
 for `fused_fwd`), the kernels the training entry point runs
 `train_loop_launches` (its auto run for `quad_gather` and `quad_scatter`,
-its `fused` epoch for `fused_fwd` and `fused_bwd`).
+its `fused` epoch for `fused_fwd` and `fused_bwd`), and every kernel
+`variant_launches`, its launches in phase 9's runs (training steps and
+requests; not its fp32 comparisons). The script prints its total wall
+before the two JSON lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -2210,14 +2230,17 @@ def phase_training_fused(torch, np, model, card):
     return launched
 
 
-def _grads(torch, model, cfg, batch):
+def _grads(torch, model, cfg, batch, allow_unused=False):
     """The deterministic loss and every parameter's gradient, the latter
-    copied to the CPU."""
+    copied to the CPU. A parameter the loss does not reach raises, or
+    with `allow_unused` gets None."""
     from cape_tpu_torch.train.train_step import forward_losses
 
     losses = forward_losses(model, cfg, batch)
-    g = torch.autograd.grad(losses["total"], list(model.parameters()))
-    return losses["total"].item(), [x.cpu() for x in g]
+    g = torch.autograd.grad(losses["total"], list(model.parameters()),
+                            allow_unused=allow_unused)
+    return losses["total"].item(), [None if x is None else x.cpu()
+                                    for x in g]
 
 
 def _grad_ratios(torch, got, want):
@@ -2435,7 +2458,414 @@ def phase_fp32_checks(torch, np, model):
 
 
 # ----------------------------------------------------------------------
+#: the teacher-forced-only configs of phase_variants: v2-v6 (all with
+#: dec_attn_concat_src, the prefix of v4/v41/v5/v6) and v1 with it
+VARIANT_TRAIN = {
+    "v2": {"dec_layer_type": "v2"},
+    "v3": {"dec_layer_type": "v3"},
+    "v4": {"dec_layer_type": "v4"},
+    "v41": {"dec_layer_type": "v41"},
+    "v5": {"dec_layer_type": "v5"},
+    "v6": {"dec_layer_type": "v6"},
+    "v1": {"dec_layer_type": "v1"},
+}
+#: the options that also serve
+VARIANT_SERVE = {"legacy_encoder": {"use_geometric_encoder": False},
+                 "no_qkv_proj": {"dec_qkv_proj": False}}
+
+
+def _variant_steps(torch, np, cfg, label, card, n_steps, counts_per_step,
+                   impl=None):
+    """`n_steps` micro-steps of `make_train_step` on a fresh flagship model
+    of `cfg` (4 query images each, dropout 0.1): finite losses, the launch
+    counts of every micro-step, and after a real update every trained
+    parameter's fp32 master moved; only v2-v6 leave parameters without a
+    gradient, the support encoder's. Returns (model, summed counts)."""
+    from cape_tpu_torch import CAPE
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(9))
+    # the init zeroes the residual branches' last BN scales, the heads' last
+    # layers and the MSDA offset and weight projections, which leaves the
+    # branches, the heads' hidden layers and level_embed without a gradient
+    # on a first update: seeded noise of 0.02 gives every parameter one
+    g = torch.Generator().manual_seed(10)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((0.02 * torch.randn(p.shape, generator=g)).to(p))
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    before = [m.clone() for m in state.opt_state.masters]
+    grad_seen = [False] * len(before)
+    total = dict.fromkeys(_counts(), 0)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with selection(CAPE_MSDA_GATHER=impl):
+        for i in range(n_steps):
+            batch = _train_batch(np, cfg, rng)
+            _reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = _counts()
+            for k, v in counts.items():
+                total[k] += v
+            m = {k: v.item() for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in m.values()),
+                  f"{label}: non-finite metrics {m}")
+            _check_counts(counts, f"{label} micro-step {i + 1}",
+                          **counts_per_step)
+            grad_seen = [s or bool(a.any()) for s, a in
+                         zip(grad_seen, state.opt_state.acc_grads)]
+    peak = torch.cuda.max_memory_allocated()
+    lrs = state.tx.group_lrs(0)
+    trained = [i for i, lab in enumerate(state.opt_state.labels)
+               if lrs[lab] > 0]
+    if n_steps >= cfg.accumulation_steps:
+        check(state.opt_state.gradient_step >= 1, f"{label}: no update")
+        still = [state.opt_state.names[i] for i in trained if grad_seen[i]
+                 and torch.equal(before[i], state.opt_state.masters[i])]
+        unused = [state.opt_state.names[i] for i in trained
+                  if not grad_seen[i]]
+        check(not still, f"{label}: trained parameters did not move: "
+              f"{still[:5]}")
+        variant = cfg.dec_layer_type != "v1"
+        check(all(n.startswith("support_encoder.") for n in unused)
+              and bool(unused) == variant,
+              f"{label}: parameters without a gradient: {unused[:5]}")
+        print(f"  {label}: {len(trained) - len(unused)} of "
+              f"{len(state.opt_state.names)} master tensors trained and "
+              f"moved; {len(unused)} without a gradient (unused by the "
+              f"variant)", flush=True)
+    updates = times[cfg.accumulation_steps - 1::cfg.accumulation_steps]
+    print(f"  {label}: ms per micro-step {[round(t, 3) for t in times]}, "
+          f"of which ending an update {[round(t, 3) for t in updates]}; "
+          f"ms per update {round(sum(times[:cfg.accumulation_steps]), 3)}"
+          f"{'' if n_steps >= cfg.accumulation_steps else ' (no update)'};"
+          f" peak memory {peak} bytes; launches {total} ({card})",
+          flush=True)
+    return model, total
+
+
+def _check_decode_refused(torch, np, model, label):
+    """The decode of a teacher-forced-only model raises the JAX package's
+    ValueError (`cape_tpu/models/decoder.py:432-447`)."""
+    from cape_tpu_torch.models.cape import autoregressive_decode
+
+    cfg = model.cfg
+    K = cfg.max_support_keypoints
+    sc = np.zeros((1, K, 2), np.float32)
+    sc[0, :17] = PROTO_17
+    sm = np.ones((1, K), bool)
+    sm[0, :17] = False
+    se = np.full((1, cfg.max_skeleton_edges, 2), -1, np.int32)
+    img = np.zeros((1, cfg.image_size, cfg.image_size, 3), np.uint8)
+    try:
+        autoregressive_decode(model, img, sc, sm, se)
+    except ValueError as e:
+        msg = str(e)
+        check("layer_type='v1'" in msg or "attn_concat_src" in msg,
+              f"{label}: the decode raised another ValueError: {msg}")
+        return msg
+    raise Failed(f"{label}: the decode of a teacher-forced-only model ran")
+
+
+def _reference_layout(torch, np, model, seed):
+    """A reference (PyTorch) CAPE checkpoint's state dict for `model`'s
+    config, random tensors from `seed` in the reference's key layout
+    (`CAPEModel.state_dict()`: torchvision backbone names with BN
+    statistics, nn.MultiheadAttention's packed in_proj, GCN Conv1d, the
+    heads aliased under the decoder, the reference's unused support
+    tensors). Returns (reference dict, the port tensors each non-backbone
+    reference tensor should import as)."""
+    import re
+
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, key):
+        if key.endswith(".bias"):
+            v = 0.1 * rng.normal(size=shape)
+        elif len(shape) == 1:                       # norm scales
+            v = 1.0 + 0.1 * rng.normal(size=shape)
+        elif key in ("level_embed", "decoder.query_embed"):
+            v = rng.normal(size=shape)
+        elif key.endswith(("token_embed.weight", "edge_embedding.weight")):
+            v = rng.normal(size=shape) * shape[-1] ** -0.5
+        else:                                       # fan-in scaled
+            v = rng.normal(size=shape) * np.prod(shape[1:]) ** -0.5
+        return v.astype(np.float32)
+
+    port = {k: rand(tuple(v.shape), k) for k, v in model.state_dict().items()
+            if not k.startswith("backbone.")}
+    tr, dec = "base_model.transformer", "base_model.transformer.decoder"
+    rules = (
+        (r"^input_projs\.(\d)\.", r"base_model.input_proj.\1."),
+        (r"^level_embed$", f"{tr}.level_embed"),
+        (r"^encoder\.", f"{tr}.encoder."),
+        (r"^decoder\.query_embed$", "base_model.query_embed.weight"),
+        (r"^decoder\.class_heads\.", "base_model.class_embed."),
+        (r"^decoder\.coords_heads\.", "base_model.coords_embed."),
+        (r"^decoder\.", f"{dec}."),
+        (r"^support_encoder\.coord_mlp_0\.", "support_encoder.coord_mlp.0."),
+        (r"^support_encoder\.coord_mlp_1\.", "support_encoder.coord_mlp.2."),
+        (r"^support_encoder\.gcn\.(\d+)\.linear\.",
+         r"support_encoder.gcn_layers.\1.conv."),
+        (r"^support_encoder\.layers\.",
+         "support_encoder.transformer_encoder.layers."),
+    )
+    ref = {}
+    for key, v in port.items():
+        for pat, rep in rules:
+            new, n = re.subn(pat, rep, key)
+            if n:
+                break
+        m = re.match(r"(.*)\.(q|k|v)_proj\.(weight|bias)$", new)
+        if m and ("self_attn" in new or "support_attn" in new):
+            packed = f"{m.group(1)}.in_proj_{m.group(3)}"
+            parts = ref.setdefault(packed, {})
+            parts[m.group(2)] = v
+            continue
+        if ".gcn_layers." in new and new.endswith("weight"):
+            v = v[:, :, None]
+        ref[new] = v
+        if new.startswith(("base_model.class_embed.",
+                           "base_model.coords_embed.")):
+            ref[new.replace("base_model.", f"{dec}.", 1)] = v
+    for key in [k for k, v in ref.items() if isinstance(v, dict)]:
+        ref[key] = np.concatenate([ref[key][c] for c in "qkv"])
+    D = model.cfg.hidden_dim
+    ref["support_cross_attention_layers.0.in_proj_weight"] = np.zeros(
+        (3 * D, D), np.float32)
+    ref["support_proj.weight"] = np.zeros((D, D), np.float32)
+    # the backbone under torchvision's names, with BN statistics
+    bb = model.backbone
+    for name, p in bb.named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith(".scale") or name.endswith(".bias"):
+            continue
+        key = name.replace("downsample_conv", "downsample.0")
+        ref[f"base_model.backbone.0.body.{key}"] = (
+            rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        ).astype(np.float32)
+    for name, mod in bb.named_modules():
+        if hasattr(mod, "scale") and isinstance(mod.scale, torch.nn.Parameter):
+            n = mod.scale.numel()
+            key = "base_model.backbone.0.body." + name.replace(
+                "downsample_bn", "downsample.1")
+            ref[f"{key}.weight"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            ref[f"{key}.bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+            ref[f"{key}.running_mean"] = rng.normal(0, 0.2, n).astype(
+                np.float32)
+            ref[f"{key}.running_var"] = rng.uniform(0.3, 2.0, n).astype(
+                np.float32)
+            ref[f"{key}.num_batches_tracked"] = np.array(1000, np.int64)
+    return ref, port
+
+
+def phase_variants(torch, np, card, root):
+    """The model variants at the flagship width (`CAPEConfig()`, bf16,
+    dropout 0.1, random weights): 4 micro-steps (one real update) of each
+    teacher-forced-only config, its decode refused; 2 `fused` micro-steps
+    of v2 and v3; a request of 8 and 4 micro-steps of the legacy support
+    encoder and of `dec_qkv_proj=False`; fp32 gradients on the card
+    against fp64 ones on the CPU for v2, v3, v41 and the legacy encoder at
+    phase_fp32_grads' config; and a
+    synthetic reference checkpoint through `cli.import_checkpoint` into
+    `CAPEPredictor.from_checkpoint`. Returns the summed launches."""
+    from cape_tpu_torch import CAPE, CAPEConfig, CAPEPredictor
+    from cape_tpu_torch.cli import import_checkpoint
+    from cape_tpu_torch.utils.torch_import import import_reference_state_dict
+
+    t_phase = time.perf_counter()
+    base = CAPEConfig()
+    check(base.bf16 and base.image_size == 512 and base.dropout == 0.1
+          and base.accumulation_steps == 4 and base.hidden_dim == 256
+          and base.enc_layers == 6 and base.dec_layers == 6,
+          "flagship defaults changed")
+    # no lr warmup: in its first step an update (~lr/2500) is below the
+    # fp32 resolution of the norm scales near 1, and the check below wants
+    # every trained tensor moved after one update
+    base = base.replace(warmup_epochs=0)
+    L = base.num_feature_levels
+    enc, dec = base.enc_layers * L, base.dec_layers * L
+    total = dict.fromkeys(_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    print("phase_variants: teacher-forced-only configs, 4 micro-steps of 4 "
+          "images each (1 real update)", flush=True)
+    for name, kw in VARIANT_TRAIN.items():
+        cfg = base.replace(dec_attn_concat_src=True, **kw)
+        per = enc if name == "v3" else enc + dec
+        model, counts = _variant_steps(
+            torch, np, cfg, f"{name} + dec_attn_concat_src", card, 4,
+            dict(quad_gather=per, quad_scatter=per))
+        add(counts)
+        msg = _check_decode_refused(torch, np, model, name)
+        print(f"  {name}: the decode raised ValueError: {msg[:72]}...",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+    print("phase_variants: v2 and v3 under CAPE_MSDA_GATHER=fused, 2 "
+          "micro-steps", flush=True)
+    for name in ("v2", "v3"):
+        cfg = base.replace(dec_attn_concat_src=True, **VARIANT_TRAIN[name])
+        per = enc if name == "v3" else enc + dec
+        model, counts = _variant_steps(
+            torch, np, cfg, f"{name} fused", card, 2,
+            dict(fused_fwd=per, fused_bwd=per), impl="fused")
+        add(counts)
+        del model
+        torch.cuda.empty_cache()
+
+    print("phase_variants: the options that serve", flush=True)
+    reqs = _requests(np, 1, 8)
+    proto = np.asarray(PROTO_17, np.float32)
+    for name, kw in VARIANT_SERVE.items():
+        cfg = base.replace(**kw)
+        model, counts = _variant_steps(
+            torch, np, cfg, name, card, 4,
+            dict(quad_gather=enc + dec, quad_scatter=enc + dec))
+        add(counts)
+        pred = CAPEPredictor(cfg, model, batch_size=8)
+        imgs, boxes = reqs[0]
+        pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        _check_results(np, res, len(imgs), len(PROTO_17))
+        steps = max(r["length"] for r in res)
+        _check_counts(counts, f"the {name} request",
+                      quad_gather=enc + base.dec_layers * steps)
+        add(counts)
+        print(f"  {name}: a request of 8 (warm) {ms:.3f} ms, {steps} decode "
+              f"steps, launches {counts} ({card})", flush=True)
+        del model, pred
+        torch.cuda.empty_cache()
+
+    # -- fp32 on the card (kernels) against the CPU (plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = CAPEConfig().replace(image_size=128, enc_layers=2, dec_layers=2,
+                                 dropout=0.0, bf16=False, batch_size=1,
+                                 accumulation_steps=1, warmup_epochs=0)
+    batch = _train_batch(np, small, np.random.default_rng(5))
+    for name, kw in (("v2", VARIANT_TRAIN["v2"]), ("v3", VARIANT_TRAIN["v3"]),
+                     ("v41", VARIANT_TRAIN["v41"]),
+                     ("legacy_encoder", VARIANT_SERVE["legacy_encoder"])):
+        c = small.replace(**kw)
+        if name != "legacy_encoder":
+            c = c.replace(dec_attn_concat_src=True)
+        m_cpu = CAPE(c, device="cpu", generator=torch.Generator().manual_seed(7))
+        m_gpu = CAPE(c, device="cuda", generator=torch.Generator().manual_seed(8))
+        m_gpu.load_state_dict(m_cpu.state_dict())
+        # the reference computes in fp64: fp32 on the CPU is itself not one
+        # answer here (v41's encoder.layers.0.linear1.bias gradient, a sum
+        # that cancels, lies 2.7 tolerances apart between 1 and 4 CPU
+        # threads, and the 1-thread run is the fp64 one's)
+        m_cpu.double()
+        names = [n for n, _ in m_cpu.named_parameters()]
+        l_cpu, g_cpu = _grads(torch, m_cpu, c, batch, allow_unused=True)
+        l_gpu, g_gpu = _grads(torch, m_gpu, c, batch, allow_unused=True)
+        # v2-v6 leave the whole support encoder out, and nothing else
+        unused = [n for n, g in zip(names, g_cpu) if g is None]
+        want_unused = ([n for n in names if n.startswith("support_encoder.")]
+                       if c.dec_layer_type != "v1" else [])
+        check(unused == want_unused
+              and bool(unused) == (name != "legacy_encoder"),
+              f"{name}: parameters without a gradient on the CPU: "
+              f"{unused[:5]}, expected {want_unused[:5]}")
+        check([n for n, g in zip(names, g_gpu) if g is None] == unused,
+              f"{name}: the card leaves other parameters without a "
+              f"gradient than the CPU")
+        names, g_cpu, g_gpu = zip(*[t for t in zip(names, g_cpu, g_gpu)
+                                    if t[1] is not None])
+        ratios = _grad_ratios(torch, g_gpu, g_cpu)
+        order = sorted(range(len(names)), key=lambda i: -ratios[i])
+        print(f"  fp32 card vs fp64 CPU [{name}]: loss {l_gpu:.7f} vs "
+              f"{l_cpu:.7f}; gradient error over tolerance, largest: "
+              f"{[(names[i], f'{ratios[i]:.3e}') for i in order[:3]]} "
+              f"(per tensor {GRAD_RTOL:g} of its L2 norm + {GRAD_ATOL:g} "
+              f"of the global norm, TF32 off)", flush=True)
+        check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"fp32 loss differs ({name})")
+        check(ratios[order[0]] <= 1.0,
+              f"fp32 gradient of {names[order[0]]} ({name}): "
+              f"{ratios[order[0]]:.3e} of its tolerance")
+        del m_cpu, m_gpu
+
+    # -- a reference checkpoint through the import CLI
+    cfg = CAPEConfig()
+    t0 = time.perf_counter()
+    layout_model = CAPE(cfg.replace(bf16=False), device="cpu")
+    ref, port = _reference_layout(torch, np, layout_model, seed=11)
+    del layout_model
+    imported = import_reference_state_dict(ref, cfg)
+    wrong = [k for k, v in port.items()
+             if not torch.equal(imported[k], torch.from_numpy(v))]
+    check(not wrong, f"the reference layout does not import to itself: "
+          f"{wrong[:5]}")
+    fields = ("hidden_dim", "nheads", "enc_layers", "dec_layers",
+              "dim_feedforward", "dropout", "num_feature_levels",
+              "dec_n_points", "enc_n_points", "seq_len", "vocab_size",
+              "image_size")
+    pth = os.path.join(root, "checkpoint_best.pth")
+    torch.save({"model": {k: torch.from_numpy(np.asarray(v))
+                          for k, v in ref.items()},
+                "args": argparse.Namespace(**{f: getattr(cfg, f)
+                                               for f in fields}),
+                "epoch": 12, "best_pck": 0.5}, pth)
+    t1 = time.perf_counter()
+    out = import_checkpoint.main(["--torch_checkpoint", pth, "--output_dir",
+                                  os.path.join(root, "imported")])
+    t2 = time.perf_counter()
+    pred = CAPEPredictor.from_checkpoint(out, batch_size=8)
+    check(pred.model.cfg.to_json() == cfg.to_json(),
+          "the imported checkpoint's config is not the flagship's")
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(3))
+    model.load_state_dict(imported)
+    in_memory = CAPEPredictor(cfg, model, batch_size=8)
+    imgs, boxes = reqs[0]
+    _reset_counts()
+    res = pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_results(np, res, len(imgs), len(PROTO_17))
+    steps = max(r["length"] for r in res)
+    _check_counts(counts, "the imported checkpoint's request",
+                  quad_gather=enc + base.dec_layers * steps)
+    add(counts)
+    want = in_memory.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    same = all(np.array_equal(a["keypoints"], b["keypoints"])
+               and a["length"] == b["length"] for a, b in zip(res, want))
+    print(f"  reference import: {len(ref)} reference tensors; layout, save "
+          f"{(t1 - t0) * 1e3:.3f} ms, cli.import_checkpoint "
+          f"{(t2 - t1) * 1e3:.3f} ms; from_checkpoint's request of 8: "
+          f"{steps} decode steps, keypoints equal to the in-memory "
+          f"import's: {same}", flush=True)
+    check(same, "from_checkpoint's keypoints differ from the in-memory "
+          "import's")
+    del pred, in_memory, model
+    torch.cuda.empty_cache()
+    print(f"phase_variants: {time.perf_counter() - t_phase:.3f} s wall, "
+          f"launches {total}", flush=True)
+    return total
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2482,6 +2912,10 @@ def main() -> int:
         del train_model
         loop_counts = phase_train_loop(torch, np, card, sized)
         shutil.rmtree(sized)
+        variants_dir = os.path.join(tree.name, "variants")
+        os.makedirs(variants_dir)
+        variant_counts = phase_variants(torch, np, card, variants_dir)
+        shutil.rmtree(variants_dir)
         m32, m_cpu = phase_fp32_checks(torch, np, model)
         _eval_fp32(torch, np, m32, m_cpu, ev)
         del m32, m_cpu
@@ -2513,6 +2947,9 @@ def main() -> int:
             k["eval_launches"] = eval_launches[k["name"]]
         if k["name"] in loop_counts:
             k["train_loop_launches"] = loop_counts[k["name"]]
+        k["variant_launches"] = variant_counts[k["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

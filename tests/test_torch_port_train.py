@@ -522,7 +522,16 @@ def test_dropout_training_is_reproducible_from_one_seed():
 
 # -- config ----------------------------------------------------------------------
 @pytest.mark.parametrize("option", [{"dec_attn_concat_src": True},
-                                    {"dec_qkv_proj": False}])
+                                    {"dec_layer_type": "v2"}])
 def test_train_only_options_are_rejected(option):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        PortCAPE(PortConfig().replace(**option), device="cpu")
+    """The teacher-forced-only options build and train, and their decode
+    raises the JAX package's ValueError (`dec_qkv_proj=False` decodes:
+    `test_torch_port_variants.py`)."""
+    from cape_tpu_torch.models.cape import autoregressive_decode
+
+    from test_torch_port_util import episode_inputs
+
+    cfg = PortConfig.from_json(jax_tiny(0)[0].to_json()).replace(**option)
+    pm = PortCAPE(cfg, device="cpu")
+    with pytest.raises(ValueError, match="layer_type='v1'|attn_concat_src"):
+        autoregressive_decode(pm, *episode_inputs(cfg, batch=1))
