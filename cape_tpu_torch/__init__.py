@@ -7,7 +7,10 @@ Four paths are ported: the serving path (ResNet-50 -> deformable encoder
 episodes on disk -> `data` -> `eval.evaluate_cape` -> PCK@0.2) and the
 training entry point (`cli.train` -> `train.loop.train_loop` with the
 train-time augmentation and checkpoints; `cli.evaluate`, `cli.visualize`,
-`CAPEPredictor.from_checkpoint`), with
+`CAPEPredictor.from_checkpoint`); the last three also run across
+processes, one per card (`parallel`: a `torch.distributed` group, sharded
+batches and evaluation, one fp32 all-reduce of the gradients a
+micro-step). They run with
 hand-written CUDA kernels (`ops/csrc/`) for the seven Pallas kernels of
 `cape_tpu`. The package imports PyTorch and numpy only: nothing of JAX and
 nothing of `cape_tpu`. Entry points run on the card (`device="cuda"`)

@@ -12,6 +12,13 @@ Quick smoke on the CPU:
 
     python -m cape_tpu_torch.cli.train --dataset_root ... --epochs 1 \
         --episodes_per_epoch 5 --batch_size 1 --device cpu
+
+Across processes, one per card, every process runs the same command:
+under torchrun (`torchrun --nproc_per_node 8 -m cape_tpu_torch.cli.train
+...`) or with the JAX package's variables set for each process
+(`CAPE_COORDINATOR=host:port CAPE_NUM_PROCESSES=N CAPE_PROCESS_ID=i`).
+The group's backend is `nccl` on the cards and `gloo` with `--device
+cpu`; `--batch_size` is the global batch, split evenly across ranks.
 """
 
 from __future__ import annotations
@@ -141,13 +148,19 @@ def main(argv=None):
     from ..data.builder import build_mp100_cape, resolve_split_file
     from ..device import resolve_device
     from ..models.cape import CAPE
+    from ..parallel import is_main, maybe_initialize, process_count
     from ..train.loop import train_loop
 
+    # multi-process: the group first, so that `cuda` is this rank's card
+    maybe_initialize("gloo" if torch.device(args.device).type == "cpu"
+                     else None)
     device = resolve_device(args.device)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(f"torch {torch.__version__} on {device} ({name})", flush=True)
-    print(cfg.to_json(), flush=True)
+    if is_main():
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+        print(f"torch {torch.__version__} on {device} ({name}), "
+              f"{process_count()} process(es)", flush=True)
+        print(cfg.to_json(), flush=True)
     np.random.seed(cfg.seed)
 
     train_ds = build_mp100_cape("train", cfg)

@@ -36,6 +36,7 @@ import torch
 from ..config import CAPEConfig
 from ..data.token_types import TokenType
 from ..models.cape import CAPE, autoregressive_decode
+from ..parallel import allgather_tree
 from ..utils.debug import debug_enabled
 from ..utils.logging import MetricLogger
 from .pck import PCKEvaluator
@@ -140,14 +141,16 @@ def evaluate_cape(
     + 1 (EOS), since extraction reads at most num_keypoints coords and the
     per-step math is unchanged.
 
-    `multihost=True` (sharded evaluation across processes) is not ported
-    yet and raises."""
+    `multihost=True` (sharded evaluation across processes): each rank
+    decodes its own slice of the episodes (batches built from
+    `parallel.host_episode_slice`, the same count of batches of the same
+    size on every rank); the decode outputs and the batch's metadata are
+    then gathered (`parallel.allgather_tree`) so that every rank scores
+    the full set: the same PCK on every rank, so that checkpoint and
+    early-stopping decisions agree. A decode that stops early still pads
+    its outputs to (B, seq_len, ...), so the gathered shapes agree."""
     if pck_norm not in ("original_bbox", "resized"):
         raise ValueError(f"pck_norm={pck_norm!r}: 'original_bbox'|'resized'")
-    if multihost:
-        raise NotImplementedError(
-            "evaluate_cape(multihost=True): sharded evaluation is not ported "
-            "yet; it is queued with multi-GPU (ROADMAP.md, queue 1 item 10)")
     evaluator = PCKEvaluator(threshold=pck_threshold)
     logger = MetricLogger()
 
@@ -156,7 +159,11 @@ def evaluate_cape(
         out = to_numpy(decode(
             model, batch["query_images"], batch["support_coords"],
             batch["support_mask"], batch["skeleton_edges"], decode_max_len))
-        meta = to_numpy({k: batch[k] for k in _META_KEYS if k in batch})
+        meta = {k: batch[k] for k in _META_KEYS if k in batch}
+        if multihost:
+            out, meta = allgather_tree(out), allgather_tree(meta)
+        else:
+            meta = to_numpy(meta)
         pred_logits = out["pred_logits"].astype(np.float32)
         pred_coords = out["pred_coords"].astype(np.float32)
         valid = meta.get("sample_valid",

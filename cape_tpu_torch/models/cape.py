@@ -168,7 +168,8 @@ class CAPE(nn.Module):
 
     def _level_pe(self, h: int, w: int) -> torch.Tensor:
         """(h*w, D) positional encoding of one level: the learned tables'
-        (col[x], row[y]), or the sine encoding, cached."""
+        (col[x], row[y]), or the sine encoding, cached (made outside
+        inference mode, so that a model decoded first still trains)."""
         if self.learned_pe:
             x_emb = self.col_embed[:w]                          # (w, D/2)
             y_emb = self.row_embed[:h]                          # (h, D/2)
@@ -178,9 +179,10 @@ class CAPE(nn.Module):
         key = (h, w, self.dtype, self.device)
         pe = self._pe_cache.get(key)
         if pe is None:
-            pe = torch.as_tensor(
-                image_sine_pe_2d(h, w, self.cfg.hidden_dim).reshape(h * w, -1),
-                device=self.device).to(self.dtype)
+            with torch.inference_mode(False):
+                pe = torch.as_tensor(image_sine_pe_2d(
+                    h, w, self.cfg.hidden_dim).reshape(h * w, -1),
+                    device=self.device).to(self.dtype)
             self._pe_cache[key] = pe
         return pe
 

@@ -75,12 +75,15 @@ class MSDeformAttn(nn.Module):
             self.project_value(src), spatial_shapes)
 
     def _normalizer(self, spatial_shapes, device) -> torch.Tensor:
-        """(L, 2) as (W, H) per level, cached per shapes and device."""
+        """(L, 2) as (W, H) per level, cached per shapes and device (made
+        outside inference mode, so that a model decoded first still
+        trains)."""
         key = (tuple(map(tuple, spatial_shapes)), device)
         t = self._normalizers.get(key)
         if t is None:
-            t = torch.tensor([[w_, h_] for h_, w_ in spatial_shapes],
-                             dtype=torch.float32, device=device)
+            with torch.inference_mode(False):
+                t = torch.tensor([[w_, h_] for h_, w_ in spatial_shapes],
+                                 dtype=torch.float32, device=device)
             self._normalizers[key] = t
         return t
 

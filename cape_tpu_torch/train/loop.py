@@ -1,6 +1,5 @@
 """Full episodic training loop: epochs, validation PCK, early stopping,
-best-checkpoint tracking, resume. The port of `cape_tpu.train.loop`,
-single process.
+best-checkpoint tracking, resume. The port of `cape_tpu.train.loop`.
 
 Parity with the reference epoch loop (`train_cape_episodic.py:722-978`), as
 the JAX package keeps it:
@@ -21,8 +20,28 @@ parameters inside, this loop trains the caller's module with its weights.
 since the optimizer freezes the backbone affines whenever it is set.
 
 Dropout draws from one `torch.Generator` on the model's device, seeded by
-`cfg.seed`, in place of the JAX loop's split keys. Multi-process training
-is not ported and raises.
+`cfg.seed`, in place of the JAX loop's split keys.
+
+Across processes (a `torch.distributed` group, `parallel.maybe_initialize`)
+the loop is the JAX loop's multi-host branch, one card a rank:
+- each rank builds its share of the global batch
+  (`parallel.local_episode_count`) from its own stream
+  (`parallel.host_rng(cfg.seed)`), and the train step makes the global
+  update on every rank (`train.train_step`);
+- rank 0's parameters and buffers are broadcast before the state is
+  built (after `resnet_weights` are loaded);
+- the dropout generator is seeded per rank (`parallel.rank_seed`): the
+  JAX step draws another mask for every row of the global batch;
+- validation is sharded: each rank decodes its slice of the fixed
+  episodes (`parallel.host_episode_slice`) and every rank scores the
+  gathered set, so that best-checkpoint and early-stopping decisions
+  agree; there is no validation loss, as in the JAX loop;
+- rank 0 alone writes checkpoints and logs. Each checkpoint holds every
+  rank's numpy and dropout states (`rank_states`), and a resume with the
+  same number of ranks restores them, which makes it exact; with another
+  number, or from a single-process checkpoint, each rank draws fresh
+  streams from `(cfg.seed, rank, epoch)`, as the JAX loop re-derives its
+  host streams on resume.
 """
 
 from __future__ import annotations
@@ -43,20 +62,17 @@ from ..data.episodic import (EpisodicSampler, episode_batches,
 from ..data.mp100 import MP100Dataset
 from ..data.prefetch import prefetch, stack_batches, to_device
 from ..eval.evaluate import evaluate_cape
+from ..parallel import (allgather_object, host_episode_slice, host_rng,
+                        is_main, local_episode_count, process_count,
+                        process_index, rank_seed, replicate)
 from ..utils.checkpoint import (CheckpointManager, numpy_rng_state,
-                                restore_numpy_rng, restore_torch_rng,
-                                torch_rng_state)
+                                restore, restore_numpy_rng,
+                                restore_torch_rng, torch_rng_state)
 from ..utils.debug import debug_enabled
 from ..utils.logging import MetricLogger
 from .state import create_train_state
 from .train_step import (make_eval_loss_fn, make_scan_train_step,
                          make_train_step)
-
-
-def _multi_process() -> bool:
-    return (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1)
 
 
 def val_decode_cap(cfg: CAPEConfig, ds: MP100Dataset, categories) -> int:
@@ -79,12 +95,14 @@ def train_loop(
     """Run the full training of `model` (a `CAPE` built from `cfg`, on the
     device it trains on). Returns the final stats dict: best_pck, history
     (per epoch: epoch, train_loss, pck, the PCK counts, the train and
-    validation walls in seconds) and the `TrainState`."""
-    if _multi_process():
-        raise NotImplementedError(
-            "train_loop across processes: multi-GPU training is not ported "
-            "yet; it is queued with multi-GPU (ROADMAP.md, queue 1 item 10)")
+    validation walls in seconds) and the `TrainState`. Across processes
+    every rank calls it with the same arguments (see the module
+    docstring)."""
     device = model.device
+    multi = process_count() > 1
+    main = is_main()
+    if not main:
+        print_freq = 0  # log gating (reference setup_for_distributed)
     overfit = cfg.debug_overfit_category >= 0
     sampler = EpisodicSampler(
         train_ds, category_split_file, "train",
@@ -120,13 +138,18 @@ def train_loop(
     spd = max(1, cfg.steps_per_dispatch)
     if spd > 1:
         steps_per_epoch = max(steps_per_epoch // spd, 1) * spd
-    rng = np.random.default_rng(cfg.seed)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    # per-rank input sharding: each rank builds its share of the global
+    # episode batch from a rank-disjoint sampling stream
+    local_batch = (local_episode_count(cfg.batch_size) if multi
+                   else cfg.batch_size)
+    rng = host_rng(cfg.seed) if multi else np.random.default_rng(cfg.seed)
+    gen = torch.Generator(device=device).manual_seed(
+        rank_seed(cfg.seed) if multi else cfg.seed)
 
     # the JAX loop's probe batch (it initialises the parameters on it):
     # drawn here too, so the episode stream stays the JAX loop's
     next(episode_batches(
-        train_ds, sampler, cfg.batch_size, 1, cfg.image_size,
+        train_ds, sampler, local_batch, 1, cfg.image_size,
         cfg.max_support_keypoints, cfg.max_skeleton_edges, rng,
     ))
     masters = None
@@ -135,25 +158,41 @@ def train_loop(
 
         folded = load_torch_resnet50_npz(model.backbone, cfg.resnet_weights)
         masters = {f"backbone.{k}": v for k, v in folded.items()}
-        print(f"Loaded ImageNet backbone weights from {cfg.resnet_weights}",
-              flush=True)
+        if main:
+            print(f"Loaded ImageNet backbone weights from "
+                  f"{cfg.resnet_weights}", flush=True)
+    replicate(model)  # rank 0's parameters and buffers on every rank
     state = create_train_state(cfg, model, steps_per_epoch, masters=masters)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Model parameters: {n_params:,}", flush=True)
+    if main:
+        print(f"Model parameters: {n_params:,}", flush=True)
 
-    ckpt = CheckpointManager(cfg.output_dir)
+    # rank 0 alone opens (and cleans) the checkpoint directory
+    ckpt = CheckpointManager(cfg.output_dir) if main else None
     start_epoch, best_pck, patience = 0, 0.0, 0
     if resume:
-        state, meta = ckpt.restore(resume, state)
+        state, meta = restore(resume, state)
         start_epoch = meta["epoch"] + 1
         best_pck = meta.get("best_pck", 0.0)
         patience = meta.get("patience", 0)
-        if meta.get("rng_state"):
-            rng = restore_numpy_rng(meta["rng_state"])  # exact data order
-        if meta.get("torch_rng_state"):
-            restore_torch_rng(gen, meta["torch_rng_state"])  # exact dropout
-        print(f"Resumed from {resume} at epoch {start_epoch} "
-              f"(best PCK {best_pck:.2%})", flush=True)
+        ranks = meta.get("rank_states") or []
+        if not multi:
+            if meta.get("rng_state"):
+                rng = restore_numpy_rng(meta["rng_state"])  # exact data order
+            if meta.get("torch_rng_state"):
+                restore_torch_rng(gen, meta["torch_rng_state"])  # exact dropout
+        elif len(ranks) == process_count():
+            mine = ranks[process_index()]
+            rng = restore_numpy_rng(mine["rng_state"])
+            restore_torch_rng(gen, mine["torch_rng_state"])
+        else:
+            # another number of ranks: fresh per-rank streams, as the JAX
+            # loop re-derives its host streams on resume
+            rng = host_rng(cfg.seed, epoch=start_epoch)
+            gen.manual_seed(rank_seed(cfg.seed, epoch=start_epoch))
+        if main:
+            print(f"Resumed from {resume} at epoch {start_epoch} "
+                  f"(best PCK {best_pck:.2%})", flush=True)
 
     train_step = (make_scan_train_step(model, cfg, steps_per_epoch)
                   if spd > 1 else
@@ -173,7 +212,7 @@ def train_loop(
         t0 = time.perf_counter()
         logger = MetricLogger()
         stream = validated(episode_batches(
-            train_ds, sampler, cfg.batch_size, steps_per_epoch,
+            train_ds, sampler, local_batch, steps_per_epoch,
             cfg.image_size, cfg.max_support_keypoints,
             cfg.max_skeleton_edges, rng,
             num_threads=cfg.num_data_threads,
@@ -220,28 +259,46 @@ def train_loop(
 
         # ---- validation: batched autoregressive decode ----
         t1 = time.perf_counter()
-        eval_b, n_val_batches = eval_batch_plan(
-            cfg.val_episodes_per_epoch, cfg.eval_batch_size)
+        if multi:
+            # sharded: each rank decodes a disjoint slice of the episodes,
+            # in per-rank batches of eval_batch_size // ranks (one card a
+            # rank), and every rank scores the gathered outputs; no
+            # validation loss, as in the JAX loop
+            n_ranks = process_count()
+            valid = -(-cfg.val_episodes_per_epoch // n_ranks)
+            eval_b, n_val_batches = eval_batch_plan(
+                valid, max(1, cfg.eval_batch_size // n_ranks))
+            fixed = None
+            if fixed_val is not None:
+                fixed, valid = host_episode_slice(
+                    fixed_val, cfg.val_episodes_per_epoch)
+            val_rng = np.random.default_rng([cfg.val_seed, process_index()])
+            eval_kw = dict(multihost=True)
+        else:
+            fixed, valid = fixed_val, cfg.val_episodes_per_epoch
+            eval_b, n_val_batches = eval_batch_plan(valid, cfg.eval_batch_size)
+            val_rng = np.random.default_rng(cfg.val_seed)
+            eval_kw = dict(compute_loss=True, eval_loss_fn=eval_loss_fn)
         val_batches = episode_batches(
             val_ds, val_sampler, eval_b, n_val_batches,
             cfg.image_size, cfg.max_support_keypoints,
-            cfg.max_skeleton_edges, np.random.default_rng(cfg.val_seed),
-            fixed=fixed_val, total_episodes=cfg.val_episodes_per_epoch,
+            cfg.max_skeleton_edges, val_rng,
+            fixed=fixed, total_episodes=valid,
             num_threads=cfg.num_data_threads,
         )
         val_stats = evaluate_cape(
             model, prefetch(val_batches, transform=on_device), cfg,
-            compute_loss=True, eval_loss_fn=eval_loss_fn,
-            decode_max_len=val_cap,
+            decode_max_len=val_cap, **eval_kw,
         )
         val_s = time.perf_counter() - t1
         pck = val_stats["pck"]
         train_loss = logger.meters["loss"].global_avg
-        print(
-            f"Epoch {epoch}: train loss {train_loss:.4f} | val PCK@0.2 "
-            f"{pck:.2%} (macro {val_stats['pck_mean_categories']:.2%}) | "
-            f"{time.perf_counter() - t0:.1f}s", flush=True,
-        )
+        if main:
+            print(
+                f"Epoch {epoch}: train loss {train_loss:.4f} | val PCK@0.2 "
+                f"{pck:.2%} (macro {val_stats['pck_mean_categories']:.2%}) | "
+                f"{time.perf_counter() - t0:.1f}s", flush=True,
+            )
         # overfitting heuristic banner (reference
         # `train_cape_episodic.py:793-835` val/train ratio banding)
         val_loss = val_stats.get("total", 0.0)
@@ -259,27 +316,37 @@ def train_loop(
                         "train_s": train_s, "val_s": val_s})
 
         # ---- checkpointing / early stopping ----
+        # every rank's rng states go to rank 0, which alone writes; the
+        # decisions use the gathered PCK, the same on every rank
+        rng_state, gen_state = numpy_rng_state(rng), torch_rng_state(gen)
+        rank_states = (allgather_object({"rng_state": rng_state,
+                                         "torch_rng_state": gen_state})
+                       if multi else None)
         improved = pck > best_pck
         if improved:
             best_pck = pck
             patience = 0
-            ckpt.save_best(state, epoch, pck, cfg, best_pck, patience,
-                           rng_state=numpy_rng_state(rng),
-                           torch_rng_state=torch_rng_state(gen))
+            if main:
+                ckpt.save_best(state, epoch, pck, cfg, best_pck, patience,
+                               rng_state=rng_state, torch_rng_state=gen_state,
+                               rank_states=rank_states)
         else:
             patience += 1
-        ckpt.save_epoch(state, epoch, cfg, best_pck, patience,
-                        rng_state=numpy_rng_state(rng),
-                        torch_rng_state=torch_rng_state(gen),
-                        extra={"val_stats": {
-                            k: v for k, v in val_stats.items()
-                            if np.isscalar(v)}})
+        if main:
+            ckpt.save_epoch(state, epoch, cfg, best_pck, patience,
+                            rng_state=rng_state, torch_rng_state=gen_state,
+                            extra={"val_stats": {
+                                k: v for k, v in val_stats.items()
+                                if np.isscalar(v)}},
+                            rank_states=rank_states)
         if cfg.early_stopping_patience and patience >= cfg.early_stopping_patience:
-            print(f"Early stopping at epoch {epoch} (no PCK "
-                  f"improvement for {patience} epochs)", flush=True)
+            if main:
+                print(f"Early stopping at epoch {epoch} (no PCK "
+                      f"improvement for {patience} epochs)", flush=True)
             break
 
-    ckpt.wait()
+    if main:
+        ckpt.wait()
     return {"best_pck": best_pck, "history": history, "state": state}
 
 

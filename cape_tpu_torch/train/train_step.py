@@ -10,6 +10,15 @@ Dropout masks come from the explicit `torch.Generator` a step receives (on
 the model's device), the counterpart of the JAX `rng`; `generator=None` is
 deterministic, as a missing dropout rng is there. The NaN guard stays with
 the host loop, which reads the returned losses.
+
+Across processes (a `torch.distributed` group made before the step, see
+`parallel`) each rank steps on its share of the global batch, and the
+step stays the JAX package's global one: the loss denominators are summed
+across ranks before the division, and the gradients and losses are summed
+in one fp32 all-reduce after the backward, every micro-step. Every rank
+then holds the global gradient, losses and `grad_norm` and makes the same
+update. `DistributedDataParallel` cannot do this: its reducer hooks the
+gradient accumulators, which `torch.autograd.grad` never runs.
 """
 
 from __future__ import annotations
@@ -20,7 +29,9 @@ import torch
 
 from ..config import CAPEConfig
 from ..losses import cape_criterion
+from ..losses.criterion import loss_denominators
 from ..models.cape import CAPE
+from ..parallel import allreduce_sum_flat, process_count
 from .state import TrainState, global_norm
 
 
@@ -33,15 +44,18 @@ def _to_device(tree, device: torch.device):
 
 def forward_losses(model: CAPE, cfg: CAPEConfig, batch: Mapping,
                    generator: Optional[torch.Generator] = None,
-                   sample_mask=None) -> Dict[str, torch.Tensor]:
+                   sample_mask=None, denominators=None
+                   ) -> Dict[str, torch.Tensor]:
     """The loss dict of one teacher-forced forward on `batch` (keys
-    query_images, support_coords, support_mask, skeleton_edges, targets)."""
+    query_images, support_coords, support_mask, skeleton_edges, targets);
+    `denominators` as `cape_criterion` takes them."""
     b = _to_device(batch, model.device)
     outputs = model(b["query_images"], b["support_coords"], b["support_mask"],
                     b["skeleton_edges"], b["targets"], generator)
     if sample_mask is not None:
         sample_mask = torch.as_tensor(sample_mask, device=model.device)
-    return cape_criterion(outputs, b["targets"], cfg, sample_mask=sample_mask)
+    return cape_criterion(outputs, b["targets"], cfg, sample_mask=sample_mask,
+                          denominators=denominators)
 
 
 def make_train_step(model: CAPE, cfg: CAPEConfig, steps_per_epoch: int
@@ -50,7 +64,11 @@ def make_train_step(model: CAPE, cfg: CAPEConfig, steps_per_epoch: int
 
     `metrics` are the loss dict and `grad_norm`, the global norm of this
     micro-step's gradients before clipping, as device scalars. The
-    optimizer is the state's own (`state.tx`, from `create_train_state`)."""
+    optimizer is the state's own (`state.tx`, from `create_train_state`).
+    Under a process group of more than one rank when the step is made,
+    `batch` is this rank's share and the step is the global one (see the
+    module docstring)."""
+    multi = process_count() > 1
 
     def train_step(state: TrainState, batch: Mapping,
                    generator: Optional[torch.Generator] = None):
@@ -61,12 +79,24 @@ def make_train_step(model: CAPE, cfg: CAPEConfig, steps_per_epoch: int
                              f"{state.tx.steps_per_epoch}, the step "
                              f"{steps_per_epoch}")
         params = [p for _, p in model.named_parameters()]
-        losses = forward_losses(model, cfg, batch, generator)
+        batch = _to_device(batch, model.device)
+        den = None
+        if multi:
+            (den,) = allreduce_sum_flat([loss_denominators(batch["targets"],
+                                                           cfg)])
+        losses = forward_losses(model, cfg, batch, generator,
+                                denominators=den)
         grads = torch.autograd.grad(losses["total"], params,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
         metrics = {k: v.detach() for k, v in losses.items()}
+        if multi:
+            # the global gradient and losses: one fp32 all-reduce (SUM)
+            keys = list(metrics)
+            summed = allreduce_sum_flat(grads + [metrics[k] for k in keys])
+            grads = summed[:len(grads)]
+            metrics = dict(zip(keys, summed[len(grads):]))
         metrics["grad_norm"] = global_norm(grads)
         state.tx.update(grads, state.opt_state, params)
         state.step += 1

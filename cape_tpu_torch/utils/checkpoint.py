@@ -8,7 +8,10 @@ Parity with the JAX package's layout (`train_cape_episodic.py:853-959`):
 - `meta.json`: epoch, best PCK, patience, the full config (self-describing
   checkpoints), the host numpy rng state (`rng_state`) and, in place of the
   JAX dropout key, the dropout `torch.Generator`'s state
-  (`torch_rng_state`);
+  (`torch_rng_state`); across processes also every rank's two states, in
+  rank order (`rank_states`: [{"rng_state", "torch_rng_state"}, ...]),
+  the top-level pair being rank 0's, which a single-process restore
+  reads;
 - `state.pt`: `train.state.TrainState.state_dict()`, the step, the fp32
   masters (never the bf16 model copies), `mu`, `nu`, `acc_grads` and the
   four counts, read back with `torch.load(weights_only=True)`.
@@ -30,7 +33,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +79,9 @@ class CheckpointManager:
     @staticmethod
     def _meta(epoch: int, cfg: CAPEConfig, best_pck: float, patience: int,
               rng_state: Optional[dict], torch_rng_state: Optional[str],
-              extra: Optional[Dict]) -> Dict[str, Any]:
-        return {
+              extra: Optional[Dict],
+              rank_states: Optional[List[Dict]]) -> Dict[str, Any]:
+        meta = {
             "epoch": epoch,
             "best_pck": best_pck,
             "patience": patience,
@@ -86,22 +90,27 @@ class CheckpointManager:
             "torch_rng_state": torch_rng_state,
             "extra": extra or {},
         }
+        if rank_states is not None:
+            meta["rank_states"] = rank_states
+        return meta
 
     def save_epoch(self, state, epoch: int, cfg: CAPEConfig,
                    best_pck: float, patience: int,
                    rng_state: Optional[dict] = None,
                    torch_rng_state: Optional[str] = None,
-                   extra: Optional[Dict] = None) -> None:
+                   extra: Optional[Dict] = None,
+                   rank_states: Optional[List[Dict]] = None) -> None:
         self._save(f"epoch_{epoch}", state,
                    self._meta(epoch, cfg, best_pck, patience, rng_state,
-                              torch_rng_state, extra))
+                              torch_rng_state, extra, rank_states))
 
     def save_best(self, state, epoch: int, pck: float, cfg: CAPEConfig,
                   best_pck: float, patience: int,
                   rng_state: Optional[dict] = None,
-                  torch_rng_state: Optional[str] = None) -> None:
+                  torch_rng_state: Optional[str] = None,
+                  rank_states: Optional[List[Dict]] = None) -> None:
         meta = self._meta(epoch, cfg, best_pck, patience, rng_state,
-                          torch_rng_state, None)
+                          torch_rng_state, None, rank_states)
         meta["pck"] = pck
         self._save(f"best_epoch_{epoch}_pck_{pck:.4f}", state, meta)
 
@@ -140,12 +149,16 @@ class CheckpointManager:
         return os.path.join(self.dir, top[1]) if top else None
 
     def restore(self, path: str, target_state) -> Tuple[Any, Dict]:
-        """Load a checkpoint into `target_state` (a `TrainState` of the
-        same model, e.g. fresh from `create_train_state`) in place.
-        Returns (state, meta)."""
-        target_state.load_state_dict(
-            load_state(path, target_state.model.device))
-        return target_state, read_meta(path)
+        """The module's `restore`."""
+        return restore(path, target_state)
+
+
+def restore(path: str, target_state) -> Tuple[Any, Dict]:
+    """Load a checkpoint into `target_state` (a `TrainState` of the same
+    model, e.g. fresh from `create_train_state`) in place, without a
+    manager (which would clean its directory). Returns (state, meta)."""
+    target_state.load_state_dict(load_state(path, target_state.model.device))
+    return target_state, read_meta(path)
 
 
 def read_meta(path: str) -> Dict:

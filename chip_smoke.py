@@ -85,7 +85,22 @@ and exits non-zero at the first phase that fails:
    at a reduced config the loss and every parameter's gradient on the
    default, `use_pallas_msda`, `fused` and `fusedq` paths, a scatter that
    loses duplicate indices (which that check must reject), and one real
-   update.
+   update;
+11. multi-process data parallelism (`phase_ddp`): two ranks as
+   subprocesses of this script (`--ddp-rank`) on the one card, in an
+   explicitly requested `gloo` group on CUDA tensors (a stand-in for two
+   cards: nccl refuses two ranks on one device). They decode phase 6's
+   12 episodes sharded (`evaluate_cape(multihost=True)`: the stats and
+   the gathered decode outputs must be the single-process run's), take a
+   flagship update of 4 micro-steps of 2 query images a rank (the
+   flagship micro-step of 4 split in two; 48 gathers and 48 scatters a
+   micro-step on each rank; the masters bit-equal across the ranks), and
+   two fp32 micro-steps at phase 10's reduced config, whose reduced
+   gradient and update are held against the single-process step on the
+   same global batch with phase 10's tolerances; ms per micro-step and
+   per all-reduce, and the eval's gather ms per batch. Then a one-rank
+   nccl group through `parallel.maybe_initialize` in this process:
+   all_reduce, all_gather, broadcast and barrier on the card.
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. A kernel has
@@ -1316,9 +1331,9 @@ def _eval_run(torch, np, model, ev, n, eb, visible, label,
     thread, `prefetch` with `to_device`) on the first `n` fixed episodes
     in batches of `eb`, under the auto cap; checks the episode and visible
     keypoint counts and that every stat is finite. Returns the stats,
-    launch counts, decode steps, and the wall and per-batch host times in
-    ms (waiting for the batch, the synchronised decode, the host scoring
-    after it)."""
+    launch counts, decode steps, each decode's outputs, and the wall and
+    per-batch host times in ms (waiting for the batch, the synchronised
+    decode, the host scoring after it)."""
     from cape_tpu_torch.data.prefetch import prefetch, to_device
     from cape_tpu_torch.eval import evaluate_cape
 
@@ -1346,6 +1361,7 @@ def _eval_run(torch, np, model, ev, n, eb, visible, label,
     ends = [asked for asked, _ in log[1:]] + [t_end]
     return types.SimpleNamespace(
         stats=stats, counts=counts, steps=[c["steps"] for c in calls],
+        outs=[c["out"] for c in calls],
         wall=(t_end - t0) * 1e3,
         wait=[(got - asked) * 1e3 for asked, got in log],
         decode=[c["ms"] for c in calls],
@@ -1421,22 +1437,23 @@ def phase_eval(torch, np, model, card, root):
               f"{[round(t, 3) for t in r.wait]} ms, decode (synchronised) "
               f"{[round(t, 3) for t in r.decode]} ms, host scoring "
               f"{[round(t, 3) for t in r.score]} ms ({card})", flush=True)
-        return r.stats, r.counts, r.steps
+        return r
 
-    stats, counts, steps = run("eval, default path")
+    first = run("eval, default path")
+    stats, counts, steps = first.stats, first.counts, first.steps
     _check_counts(counts, "the eval's default path",
                   quad_gather=sum(enc + cfg.dec_layers * s for s in steps))
-    again, _, _ = run("eval, default path again")
+    again = run("eval, default path again").stats
     check(again == stats, f"a second eval gave other stats: {again} "
           f"against {stats}")
-    fused, fcounts, fsteps = run(
-        "eval, CAPE_MSDA_GATHER=fused CAPE_DECODE_PREQUAD=0",
-        CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")
+    r = run("eval, CAPE_MSDA_GATHER=fused CAPE_DECODE_PREQUAD=0",
+            CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")
+    fused, fcounts, fsteps = r.stats, r.counts, r.steps
     _check_counts(fcounts, "the fused eval", fused_fwd=sum(
         enc + cfg.dec_layers * L * s for s in fsteps))
     print(f"eval PCK@0.2: default path {stats['pck']:.6f}, fused "
           f"{fused['pck']:.6f} ({card})", flush=True)
-    return ev, counts, fcounts
+    return ev, first, counts, fcounts
 
 
 def phase_eval_sized(torch, np, model, card, root):
@@ -2864,6 +2881,438 @@ def phase_variants(torch, np, card, root):
 
 
 # ----------------------------------------------------------------------
+#: phase_ddp: two ranks on the one card (the flagship micro-step of 4
+#: query images split in two), a real update of 4 micro-steps
+DDP_RANKS = 2
+DDP_MICRO_STEPS = 4
+#: the reduced fp32 config of phase_fp32_grads, two micro-steps (the first
+#: leaves the reduced gradient in the accumulator), a global batch of 2
+#: episodes
+DDP_FP32 = dict(image_size=128, enc_layers=2, dec_layers=2, dropout=0.0,
+                bf16=False, batch_size=2, accumulation_steps=2,
+                warmup_epochs=0)
+
+
+def _rows(tree, lo, n):
+    """Rows [lo, lo + n) of every leaf of a batch dict."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, n) for k, v in tree.items()}
+    return tree[lo:lo + n]
+
+
+def _digest(torch, tensors):
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ddp_eval(torch, np, model, spec, card):
+    """This rank's slice of phase_eval's 12 fixed episodes through
+    `evaluate_cape(multihost=True)` on the serving phase's weights, in a
+    batch of 8 as the single-process run decodes them (so that every
+    episode is decoded at the same batch shape); the gather's ms per
+    batch."""
+    from cape_tpu_torch.data.builder import (build_mp100_cape,
+                                             resolve_split_file)
+    from cape_tpu_torch.data.episodic import EpisodicSampler, episode_batches
+    from cape_tpu_torch.data.prefetch import prefetch, to_device
+    from cape_tpu_torch.eval import evaluate
+    from cape_tpu_torch.parallel import host_episode_slice, process_index
+
+    cfg = model.cfg
+    ds = build_mp100_cape("val", cfg)
+    sampler = EpisodicSampler(ds, resolve_split_file(cfg), "val",
+                              num_queries=1,
+                              num_support=cfg.num_support_per_episode)
+    local, valid = host_episode_slice(
+        sampler.fixed_episodes(EVAL_EPISODES, 0), EVAL_EPISODES)
+    eb = cfg.eval_batch_size
+    batches = episode_batches(
+        ds, sampler, eb, -(-len(local) // eb), cfg.image_size,
+        cfg.max_support_keypoints, cfg.max_skeleton_edges,
+        np.random.default_rng([0, process_index()]), fixed=local,
+        total_episodes=valid)
+    import torch.distributed as dist
+
+    gather, gather_ms, gathered = evaluate.allgather_tree, [], []
+
+    def timed_gather(tree):
+        # after a barrier: the time leaves out the wait for the other rank
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = gather(tree)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        gathered.append(out)
+        return out
+
+    evaluate.allgather_tree = timed_gather
+    try:
+        t0 = time.perf_counter()
+        stats = evaluate.evaluate_cape(
+            model, prefetch(batches, transform=to_device), cfg,
+            multihost=True, decode_max_len=spec["cap"])
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        evaluate.allgather_tree = gather
+    # two gathers a batch: the decode outputs, then the metadata; the
+    # gathered outputs of the real episodes, in episode order
+    per_batch = [a + b for a, b in zip(gather_ms[::2], gather_ms[1::2])]
+    rows = [(o, m["sample_valid"]) for o, m in
+            zip(gathered[::2], gathered[1::2])]
+    np.savez(os.path.join(spec["out"], f"eval{process_index()}.npz"),
+             **{k: np.concatenate([o[k][v] for o, v in rows])
+                for k in ("pred_logits", "pred_coords", "lengths")})
+    print(f"ddp eval: {valid} of {len(local)} local episodes valid, PCK@0.2 "
+          f"{stats['pck']:.6f} ({stats['pck_num_correct']}/"
+          f"{stats['pck_num_visible']}); wall {wall:.3f} ms, gather "
+          f"{[round(t, 3) for t in per_batch]} ms per batch ({card})",
+          flush=True)
+    return {"stats": {k: v for k, v in stats.items() if np.isscalar(v)},
+            "per_category": {str(k): v for k, v in
+                             stats["pck_per_category"].items()},
+            "gather_ms": per_batch, "wall_ms": wall}
+
+
+def _timed_allreduce(torch, log):
+    """Patch the train step's all-reduce: the gradients' call (the one of
+    more than one tensor) timed after a barrier, so that the time leaves
+    out the wait for the other rank, and synchronised (ms appended to
+    `log`). Returns the restore function."""
+    import torch.distributed as dist
+
+    from cape_tpu_torch.train import train_step
+
+    inner = train_step.allreduce_sum_flat
+
+    def timed(tensors):
+        if len(tensors) == 1:
+            return inner(tensors)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = inner(tensors)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    train_step.allreduce_sum_flat = timed
+    return lambda: setattr(train_step, "allreduce_sum_flat", inner)
+
+
+def _ddp_flagship(torch, np, model, card):
+    """The flagship update of `model` (the `CAPEConfig()` widths) on this
+    rank's half of each micro-step (2 of its 4 query images), bf16,
+    dropout 0.1 from a per-rank generator: per micro-step 48 gathers and
+    48 scatters, its ms and the all-reduce's ms; the masters' digest
+    after the real update."""
+    from cape_tpu_torch.parallel import (local_episode_count, process_index,
+                                         rank_seed, replicate)
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = model.cfg
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    rng = np.random.default_rng(3)
+    batches = [_train_batch(np, cfg, rng) for _ in range(DDP_MICRO_STEPS)]
+    n = local_episode_count(cfg.batch_size) * cfg.num_queries_per_episode
+    lo = process_index() * n
+    replicate(model)
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    gen = torch.Generator(device="cuda").manual_seed(rank_seed(cfg.seed))
+    per_step = (cfg.enc_layers + cfg.dec_layers) * cfg.num_feature_levels
+    before = [m.clone() for m in state.opt_state.masters]
+    times, reduce_ms = [], []
+    restore = _timed_allreduce(torch, reduce_ms)
+    try:
+        for i, batch in enumerate(batches):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, _rows(batch, lo, n), gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = _counts()
+            m = {k: v.item() for k, v in metrics.items()}
+            print(f"ddp flagship micro-step {i + 1}: {times[-1]:.3f} ms "
+                  f"(all-reduce {reduce_ms[-1]:.3f} ms), total "
+                  f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+                  f"launches {counts} ({card})", flush=True)
+            check(all(np.isfinite(v) for v in m.values()),
+                  "non-finite metrics")
+            _check_counts(counts, f"ddp micro-step {i + 1}",
+                          quad_gather=per_step, quad_scatter=per_step)
+    finally:
+        restore()
+    check(state.opt_state.gradient_step == 1, "no real update")
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(before, state.opt_state.masters))
+    check(changed > 0.5 * len(before), f"only {changed} masters moved")
+    print(f"ddp flagship ({n} query images a rank, bf16, dropout 0.1): ms "
+          f"per micro-step {[round(t, 3) for t in times]}, all-reduce ms "
+          f"{[round(t, 3) for t in reduce_ms]} ({card})", flush=True)
+    return {"masters": _digest(torch, state.opt_state.masters),
+            "metrics": m, "ms": times, "allreduce_ms": reduce_ms}
+
+
+def _ddp_fp32(torch, np, out_dir):
+    """The reduced fp32 config, TF32 off: two micro-steps on this rank's
+    half of one global batch; rank 0 saves the reduced gradient (the
+    accumulator after the first) and the masters after the update."""
+    from cape_tpu_torch import CAPE, CAPEConfig
+    from cape_tpu_torch.parallel import is_main, process_index
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CAPEConfig().replace(**DDP_FP32)
+    batch = _train_batch(np, cfg, np.random.default_rng(5))
+    n = cfg.num_queries_per_episode
+    mine = _rows(batch, process_index() * n, n)
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(5))
+    state = create_train_state(cfg, model, 10)
+    step = make_train_step(model, cfg, 10)
+    state, m1 = step(state, mine)
+    grads = [a.to("cpu", copy=True) for a in state.opt_state.acc_grads]
+    state, m2 = step(state, mine)
+    if is_main():
+        torch.save({"grads": grads,
+                    "masters": [m.cpu() for m in state.opt_state.masters],
+                    "totals": [m1["total"].item(), m2["total"].item()]},
+                   os.path.join(out_dir, "fp32.pt"))
+    return {"masters": _digest(torch, state.opt_state.masters)}
+
+
+def ddp_rank(spec_path) -> int:
+    """One rank of phase_ddp (run by it as a subprocess): an explicitly
+    requested gloo group of two ranks on the one card, CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from cape_tpu_torch import CAPE, CAPEConfig
+    from cape_tpu_torch.parallel import (allgather_object, maybe_initialize,
+                                         process_index)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    try:
+        check(maybe_initialize("gloo"), "no group of two ranks")
+        # the serving phase's weights, on which phase_eval ran
+        model = CAPE(CAPEConfig.from_json(spec["eval_cfg"]), device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+        check(_digest(torch, model.state_dict().values()) == spec["weights"],
+              "the rank's weights are not the serving phase's")
+        res = {"eval": _ddp_eval(torch, np, model, spec, spec["card"]),
+               "flagship": _ddp_flagship(torch, np, model, spec["card"])}
+        del model
+        res["fp32"] = _ddp_fp32(torch, np, spec["out"])
+        for key in ("flagship", "fp32"):
+            digests = allgather_object(res[key]["masters"])
+            check(len(set(digests)) == 1,
+                  f"the ranks' {key} masters differ: {digests}")
+    except (Failed, AssertionError, RuntimeError, ValueError) as e:
+        print(f"ddp rank FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(spec["out"], f"rank{process_index()}.json"),
+              "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _ddp_nccl(torch, store):
+    """A one-rank nccl group through `maybe_initialize` (no backend named:
+    CUDA is there): all_reduce, all_gather, broadcast and barrier on the
+    card, each timed once; the group is destroyed after."""
+    import torch.distributed as dist
+
+    from cape_tpu_torch.parallel import maybe_initialize
+
+    with selection(CAPE_COORDINATOR=f"file://{store}",
+                   CAPE_NUM_PROCESSES="1", CAPE_PROCESS_ID="0"):
+        check(maybe_initialize() is False, "one rank is not multi-process")
+    ms = {}
+    try:
+        check(dist.get_backend() == "nccl",
+              f"backend {dist.get_backend()}, not nccl")
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+
+        x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        want = x.clone()
+        timed("all_reduce", lambda: dist.all_reduce(x))
+        parts = [torch.empty_like(x)]
+        timed("all_gather", lambda: dist.all_gather(parts, x))
+        y = torch.full((3,), 7.0, device="cuda")
+        timed("broadcast", lambda: dist.broadcast(y, src=0))
+        timed("barrier", dist.barrier)
+        check(torch.equal(x, want) and torch.equal(parts[0], want)
+              and torch.equal(y, torch.full_like(y, 7.0)),
+              "one-rank nccl collectives changed their data")
+    finally:
+        dist.destroy_process_group()
+    return ms
+
+
+def phase_ddp(torch, np, card, model, ev, single):
+    """Multi-process data parallelism on the one card: two ranks as
+    subprocesses over an explicitly requested gloo group on CUDA tensors
+    (a stand-in for two cards: nccl refuses two ranks on one device).
+    They decode phase_eval's 12 episodes sharded (`single`, its default
+    run: the stats must be its stats, the gathered decode outputs its
+    outputs), take a flagship update (masters bit-equal
+    across ranks, 48 gathers and 48 scatters a micro-step) and the
+    reduced fp32 update (the reduced gradient and the update against the
+    single-process step on the same global batch, with phase_fp32_grads'
+    tolerances). Then a one-rank nccl group in this process."""
+    from cape_tpu_torch import CAPE, CAPEConfig
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        spec = {"eval_cfg": ev.cfg.to_json(), "cap": ev.cap, "card": card,
+                "weights": _digest(torch, model.state_dict().values()),
+                "out": tmp}
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, CAPE_COORDINATOR=f"file://{tmp}/store",
+                   CAPE_NUM_PROCESSES=str(DDP_RANKS))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+             spec_path], env=dict(env, CAPE_PROCESS_ID=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DDP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                print(f"[rank {r}] {line}", flush=True)
+        check(all(p.returncode == 0 for p in procs),
+              f"a rank failed: exit codes {[p.returncode for p in procs]}")
+        res = []
+        for r in range(DDP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+
+        # sharded eval: every rank scored the gathered set (the mean over
+        # categories to 1e-12: the gathered order of the categories is
+        # another summation order); random weights score PCK 0, so the
+        # gathered outputs are held against the single-process decode's
+        keys = ("pck", "pck_num_correct", "pck_num_visible", "num_images")
+        want = {k: single.stats[k] for k in keys}
+        for r, x in enumerate(res):
+            got = x["eval"]["stats"]
+            check({k: got[k] for k in keys} == want
+                  and abs(got["pck_mean_categories"]
+                          - single.stats["pck_mean_categories"]) <= 1e-12
+                  and x["eval"]["per_category"] == {
+                      str(k): v for k, v in
+                      single.stats["pck_per_category"].items()},
+                  f"rank {r}'s sharded eval stats {got} differ from the "
+                  f"single-process {single.stats}")
+        eb = len(single.outs[0]["lengths"])
+        real = [{k: v[:EVAL_EPISODES - i * eb].cpu().numpy()
+                 for k, v in o.items()} for i, o in enumerate(single.outs)]
+        sharded = [np.load(os.path.join(tmp, f"eval{r}.npz"))
+                   for r in range(DDP_RANKS)]
+        for k in ("pred_logits", "pred_coords", "lengths"):
+            want_k = np.concatenate([o[k] for o in real])
+            for r, got in enumerate(sharded):
+                check(got[k].shape == want_k.shape,
+                      f"rank {r}'s gathered {k}: {got[k].shape}, "
+                      f"{want_k.shape} single-process")
+                same = np.array_equal(got[k], want_k)
+                err = float(np.abs(got[k].astype(np.float64)
+                                   - want_k).max())
+                print(f"ddp eval rank {r}: gathered {k} of the "
+                      f"{EVAL_EPISODES} episodes against the "
+                      f"single-process decode: bit-equal {same}, max abs "
+                      f"err {err:.3e}", flush=True)
+                # each episode sits in a batch of 8 on both sides, and a
+                # row's decode does not depend on the other rows
+                check(same, f"rank {r}'s gathered {k} differ from the "
+                      f"single-process decode's")
+        check(res[0]["flagship"]["masters"] == res[1]["flagship"]["masters"],
+              "flagship masters differ between the ranks")
+
+        # the reduced fp32 update against the single process on the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = CAPEConfig().replace(**DDP_FP32)
+        batch = _train_batch(np, cfg, np.random.default_rng(5))
+        ref = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(5))
+        st = create_train_state(cfg, ref, 10)
+        step = make_train_step(ref, cfg, 10)
+        before = [m.to("cpu", copy=True) for m in st.opt_state.masters]
+        st, m1 = step(st, batch)
+        want_g = [a.to("cpu", copy=True) for a in st.opt_state.acc_grads]
+        st, m2 = step(st, batch)
+        want_m = [m.to("cpu", copy=True) for m in st.opt_state.masters]
+        got = torch.load(os.path.join(tmp, "fp32.pt"), weights_only=True)
+        for got_l, want_l in zip(got["totals"], (m1, m2)):
+            w = want_l["total"].item()
+            check(abs(got_l - w) <= 1e-4 * abs(w),
+                  f"fp32 two-rank loss {got_l} vs single-process {w}")
+        names = st.opt_state.names
+        ratios = _grad_ratios(torch, got["grads"], want_g)
+        worst = max(range(len(names)), key=lambda i: ratios[i])
+        lrs = st.tx.group_lrs(0)
+        n_far, far = 0, 0.0
+        for label, b, g_m, w_m in zip(st.opt_state.labels, before,
+                                      got["masters"], want_m):
+            if lrs[label] == 0.0:
+                check(torch.equal(g_m, b) and torch.equal(w_m, b),
+                      "a frozen leaf moved")
+                continue
+            diff = ((g_m - w_m) / lrs[label]).abs()
+            far = max(far, diff.max().item())
+            n_far += int((diff > 1e-2).sum())
+        print(f"ddp fp32 two ranks vs one process on the card: losses "
+              f"{got['totals']} vs {[m1['total'].item(), m2['total'].item()]}"
+              f"; reduced gradient error over tolerance, largest "
+              f"{names[worst]} {ratios[worst]:.3e} (tolerance per tensor "
+              f"{GRAD_RTOL:g} of its own L2 norm + {GRAD_ATOL:g} of the "
+              f"global norm); after the update {n_far} elements differ by "
+              f"more than 1e-2 lr, the largest by {far:.3e} lr (at most "
+              f"{UPDATE_FAR})", flush=True)
+        check(ratios[worst] <= 1.0, f"fp32 reduced gradient of "
+              f"{names[worst]}: {ratios[worst]:.3e} of its tolerance")
+        check(n_far <= UPDATE_FAR, "fp32 two-rank update differs from the "
+              "single-process update")
+        del ref, st, step
+
+        nccl = _ddp_nccl(torch, os.path.join(tmp, "nccl_store"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    flag = [x["flagship"] for x in res]
+    print(f"phase_ddp: two ranks on one card over gloo (a stand-in: no "
+          f"scaling measured): flagship ms per micro-step per rank "
+          f"{[[round(t, 3) for t in f['ms']] for f in flag]}, all-reduce "
+          f"ms per micro-step {[[round(t, 3) for t in f['allreduce_ms']] for f in flag]}"
+          f"; sharded eval gather ms per batch "
+          f"{[[round(t, 3) for t in x['eval']['gather_ms']] for x in res]}; "
+          f"one-rank nccl ms {nccl}; {time.perf_counter() - t_phase:.3f} s "
+          f"wall ({card})", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2902,7 +3351,7 @@ def main() -> int:
         kernels = phase_kernels(torch, card)
         model, default_counts, pallas_counts, fused_counts = phase_serving(
             torch, np, card)
-        ev, eval_counts, eval_fused_counts = phase_eval(
+        ev, eval_run, eval_counts, eval_fused_counts = phase_eval(
             torch, np, model, card, tree.name)
         sized = os.path.join(tree.name, "sized")
         phase_eval_sized(torch, np, model, card, sized)
@@ -2920,6 +3369,7 @@ def main() -> int:
         _eval_fp32(torch, np, m32, m_cpu, ev)
         del m32, m_cpu
         phase_fp32_grads(torch, np)
+        phase_ddp(torch, np, card, model, ev, eval_run)
         check("jax" not in sys.modules and not any(
             k == "cape_tpu" or k.startswith("cape_tpu.") for k in sys.modules),
             "the port loaded jax or the JAX package")
@@ -2958,4 +3408,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:     # a rank of phase_ddp
+        sys.exit(ddp_rank(sys.argv[2]))
     sys.exit(main())

@@ -291,8 +291,8 @@ def test_port_imports_neither_jax_nor_cape_tpu():
     training subpackages `losses/` and `train/`, the fused MSDA kernels'
     module, the evaluation path's `data/`, `eval/` and `utils/` modules and
     the training entry point's `native`, `utils.checkpoint`, `train.loop`
-    and `cli.*` included, the model variants and the reference-checkpoint
-    import too, and no
+    and `cli.*` included, the model variants, the reference-checkpoint
+    import and the multi-process `parallel.distributed` too, and no
     `cape_tpu.` module of the JAX package gets loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -310,7 +310,7 @@ def test_port_imports_neither_jax_nor_cape_tpu():
         "          'cli.evaluate', 'cli.visualize', 'models.bixattn',\n"
         "          'models.deformable_points', 'models.decoder_variants',\n"
         "          'models.matcher', 'utils.torch_import',\n"
-        "          'cli.import_checkpoint'):\n"
+        "          'cli.import_checkpoint', 'parallel.distributed'):\n"
         "    assert 'cape_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'cape_tpu' or "
         "k.startswith('cape_tpu.')]\n"
