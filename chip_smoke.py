@@ -100,7 +100,17 @@ and exits non-zero at the first phase that fails:
    same global batch with phase 10's tolerances; ms per micro-step and
    per all-reduce, and the eval's gather ms per batch. Then a one-rank
    nccl group through `parallel.maybe_initialize` in this process:
-   all_reduce, all_gather, broadcast and barrier on the card.
+   all_reduce, all_gather, broadcast and barrier on the card;
+12. the workflows around the CLIs (`phase_workflows`), each through its
+   entry point in this process with the kernel counts set to 0 just
+   before it and read just after, one `workflow {...}` line each (wall,
+   peak memory, `quad_gather` / `quad_scatter` launches): `cli.launch
+   smoke` (the synthetic fixture, the tiny model), `cli.kfold quick` over
+   the two folds of a two-split tree at the flagship width (1 epoch, 8
+   test episodes a fold, the summary; fold 2's peak memory at most 5%
+   above fold 1's), `cli.audit` on fold 1's checkpoint, `cli.kshot_demo`
+   at the flagship width cut to 2 epochs and 16 episodes a protocol, and
+   both GT visualisations on 4 images. A CLI that exits fails the run.
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. A kernel has
@@ -3313,6 +3323,150 @@ def phase_ddp(torch, np, card, model, ev, single):
           f"wall ({card})", flush=True)
 
 
+def _workflow(torch, name, fn, **want):
+    """Run one workflow with the kernel counts set to 0 just before and
+    read just after. Returns (its result, a record of its wall, peak
+    device memory and the row kernels' launches). `want` names the
+    kernels the workflow must launch (True) or must not (False); no
+    other kernel may launch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except SystemExit as e:   # a CLI's sys.exit: the workflow failed
+        raise Failed(f"workflow {name} exited with {e.code}") from e
+    torch.cuda.synchronize()
+    rec = {"workflow": name, "wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    counts = _counts()
+    rec.update({k: counts[k] for k in ("quad_gather", "quad_scatter")})
+    for k, launched in want.items():
+        check((counts[k] > 0) == launched,
+              f"workflow {name}: {counts[k]} {k} launches")
+    check(all(counts[k] == 0 for k in counts
+              if k not in ("quad_gather", "quad_scatter")),
+          f"workflow {name} launched {counts}")
+    return out, rec
+
+
+def phase_workflows(torch, np, card, root):
+    """The workflows outside the package's CLIs on the card, each through
+    its entry point (`cape_tpu_torch.cli.*`): `launch smoke` (the
+    synthetic fixture, 1 epoch of the tiny model), `kfold quick` over the
+    two folds of a two-split tree at the flagship width (1 epoch, 8 test
+    episodes a fold; each fold's peak memory, fold 2's at most 5% above
+    fold 1's), `audit` on fold 1's checkpoint, `kshot_demo` at the
+    flagship width for 2 epochs and 16 episodes a protocol, and both GT
+    visualisations on 4 images. Nothing is caught: a failed workflow
+    fails the run."""
+    from cape_tpu_torch.cli import (audit, kfold, kshot_demo, launch,
+                                    visualize_gt_annotations,
+                                    visualize_gt_preprocessing)
+    from cape_tpu_torch.data.image import decode_rgb
+    from cape_tpu_torch.data.synthetic import make_synthetic_mp100
+
+    t_phase = time.perf_counter()
+    os.makedirs(root)
+    lines = []
+
+    # launch smoke: DATASET_ROOT unset, so it writes its fixture (here,
+    # under `root`) and trains the tiny model on the card
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = root
+    try:
+        with selection(DATASET_ROOT=None,
+                       OUTPUT_DIR=os.path.join(root, "smoke")):
+            res, rec = _workflow(torch, "launch smoke",
+                                 lambda: launch.main(["smoke"]),
+                                 quad_gather=True, quad_scatter=True)
+    finally:
+        tempfile.tempdir = old_tmp
+    check(len(res["history"]) == 1 and os.path.isdir(
+        os.path.join(root, "smoke", "epoch_0")), "launch smoke: no epoch_0")
+    del res
+    lines.append(rec)
+
+    # kfold quick over two folds at the flagship width
+    tree = make_synthetic_mp100(os.path.join(root, "mp100"),
+                                num_categories=8, images_per_category=8,
+                                num_splits=2)
+    out_root = os.path.join(root, "kfold")
+    with selection(DATASET_ROOT=tree["root"], OUTPUT_ROOT=out_root,
+                   SPLITS="1 2", EVAL_EPISODES="8",
+                   EXTRA_TRAIN_ARGS="--print_freq 0", EXTRA_EVAL_ARGS=None):
+        res, rec = _workflow(torch, "kfold quick",
+                             lambda: kfold.main(["quick"]),
+                             quad_gather=True, quad_scatter=True)
+    folds = res["folds"]
+    check([f["fold"] for f in folds] == [1, 2], f"kfold folds {folds}")
+    for f in folds:
+        with open(os.path.join(out_root, f"fold_{f['fold']}",
+                               "metrics_test.json")) as fh:
+            m = json.load(fh)
+        check(m["num_images"] == 8 and 0.0 <= m["pck"] <= 1.0,
+              f"kfold fold {f['fold']} metrics {m}")
+    summary = res["summary"]
+    check(summary["folds"] == [1, 2] and all(np.isfinite(summary[k]) for k in (
+        "pck_overall_mean", "pck_overall_std", "pck_macro_mean",
+        "pck_macro_std")), f"kfold summary {summary}")
+    peaks = [f["peak_bytes"] for f in folds]
+    check(peaks[1] <= 1.05 * peaks[0],
+          f"kfold: fold 2's peak memory {peaks[1]} B is over 5% above fold "
+          f"1's {peaks[0]} B")
+    rec["folds"] = [{k: f[k] for k in ("fold", "train_s", "eval_s",
+                                       "peak_bytes")} for f in folds]
+    rec["summary"] = {k: summary[k] for k in (
+        "pck_overall_mean", "pck_overall_std", "pck_macro_mean",
+        "pck_macro_std")}
+    lines.append(rec)
+
+    # the leak audit on fold 1's checkpoint
+    res, rec = _workflow(torch, "audit", lambda: audit.main([
+        "--checkpoint", folds[0]["checkpoint"], "--dataset_root",
+        tree["root"], "--split", "val", "--num_episodes", "8"]),
+        quad_gather=True, quad_scatter=False)
+    check(res["num_samples"] == 8 and not res["leak_detected"],
+          f"audit: {res['num_samples']} samples, flags {res['flags']}")
+    rec["flags"] = res["flags"]
+    lines.append(rec)
+    shutil.rmtree(out_root)
+
+    # the k-shot demonstration at the flagship width, cut to 2 epochs
+    res, rec = _workflow(torch, "kshot_demo", lambda: kshot_demo.main([
+        "--root", os.path.join(root, "kshot"), "--epochs", "2",
+        "--num_eval_episodes", "16"]), quad_gather=True, quad_scatter=True)
+    check(set(res) == {"1shot", "5shot", "sensitivity", "layout_jitter",
+                       "support_coord_noise",
+                       "macro_delta_5shot_minus_1shot"}
+          and all(0.0 <= res[p][m] <= 1.0 for p in ("1shot", "5shot",
+                                                    "sensitivity")
+                  for m in ("micro_pck", "macro_pck")),
+          f"kshot_demo results {res}")
+    rec["results"] = res
+    lines.append(rec)
+    shutil.rmtree(os.path.join(root, "kshot"))
+
+    # the GT visualisations: host work only
+    for name, mod in (("visualize_gt_annotations", visualize_gt_annotations),
+                      ("visualize_gt_preprocessing",
+                       visualize_gt_preprocessing)):
+        out_dir = os.path.join(root, name)
+        written, rec = _workflow(torch, name, lambda: mod.main([
+            "--dataset_root", tree["root"], "--num_images", "4",
+            "--output_dir", out_dir]), quad_gather=False, quad_scatter=False)
+        imgs = [decode_rgb(p) for p in written]
+        check(len(imgs) == 4 and all(i is not None and i.shape[0] == 512
+                                     for i in imgs),
+              f"{name}: wrote {written}")
+        lines.append(rec)
+    for rec in lines:
+        print("workflow " + json.dumps(rec), flush=True)
+    print(f"phase_workflows: {time.perf_counter() - t_phase:.3f} s wall "
+          f"({card})", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3370,6 +3524,8 @@ def main() -> int:
         del m32, m_cpu
         phase_fp32_grads(torch, np)
         phase_ddp(torch, np, card, model, ev, eval_run)
+        phase_workflows(torch, np, card, os.path.join(tree.name,
+                                                      "workflows"))
         check("jax" not in sys.modules and not any(
             k == "cape_tpu" or k.startswith("cape_tpu.") for k in sys.modules),
             "the port loaded jax or the JAX package")
