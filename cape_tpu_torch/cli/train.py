@@ -108,8 +108,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="episode-loading threads (DataLoader-workers equivalent)")
     p.add_argument("--steps_per_dispatch", type=int, default=d.steps_per_dispatch,
                    help="micro-steps grouped into one stacked batch "
-                        "(make_scan_train_step); the epoch rounds to whole "
-                        "groups")
+                        "(make_scan_train_step: on the card, replays queued "
+                        "with no host read between them); the epoch rounds "
+                        "to whole groups")
     p.add_argument("--data_cache_mb", type=int, default=d.data_cache_mb,
                    help="host loader LRU budget (decoded crops / val "
                         "records) in MB; 0 disables")

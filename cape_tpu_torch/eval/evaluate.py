@@ -20,8 +20,9 @@ Deviations from the reference (the JAX package's, kept):
 - the optional validation loss is computed teacher-forced.
 
 The decode runs on the model's device (the card unless the model was
-built on the CPU); its outputs and the batch's metadata come to the host
-once per batch, and the PCK bookkeeping stays numpy float64.
+built on the CPU), as replays of captured CUDA graphs on the card
+(`decode`); its outputs and the batch's metadata come to the host once
+per batch, and the PCK bookkeeping stays numpy float64.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import CAPEConfig
 from ..data.token_types import TokenType
 from ..models.cape import CAPE, autoregressive_decode
@@ -95,8 +97,13 @@ def extract_gt_keypoints(targets: Dict[str, np.ndarray],
 def decode(model: CAPE, images, sc, sm, se,
            max_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The counterpart of the JAX package's `_decode_jit`: one batched
-    autoregressive decode on the model's device (PyTorch runs eagerly, so
-    there is no trace to cache)."""
+    autoregressive decode on the model's device. On a CUDA model, replays
+    of the program captured for the (model, batch shape, `max_len`, MSDA
+    selection) key at its first call (`graphs.decode`), as jax's jit cache
+    keeps one compiled decode a key; on the CPU the same bodies eagerly
+    (`autoregressive_decode`)."""
+    if model.device.type == "cuda":
+        return graphs.decode(model, images, sc, sm, se, max_len=max_len)
     return autoregressive_decode(model, images, sc, sm, se, max_len=max_len)
 
 

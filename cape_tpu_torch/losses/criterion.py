@@ -48,9 +48,10 @@ def _ce_weights(labels: torch.Tensor, mask: torch.Tensor, num_classes: int,
     if label_smoothing > 0:
         return mask.float()
     safe_labels = labels.clamp(0, num_classes - 1).long()
-    class_w = torch.ones((num_classes,), dtype=torch.float32,
-                         device=labels.device)
-    class_w[2] = eos_weight
+    # made on the device: an indexed write of a Python number copies it
+    # from host memory, which a CUDA graph cannot capture
+    cls = torch.arange(num_classes, device=labels.device)
+    class_w = torch.where(cls == 2, eos_weight, 1.0).float()
     return class_w[safe_labels] * mask.float()
 
 

@@ -19,8 +19,11 @@ decoder, plus the autoregressive decode loop: the port of
   False`).
 - `autoregressive_decode` generates up to `seq_len` tokens with static KV
   caches and on-device re-tokenization and token-type branching, exiting
-  once every sample has emitted EOS. The JAX `while_loop` becomes a Python
-  loop here.
+  once every sample has emitted EOS. The JAX `while_loop` becomes a
+  prologue (`decode_prologue`) and a token body (`decode_token`) that
+  carries the position on the device and masks its writes, so that the
+  body can be captured into a CUDA graph and replayed in chunks
+  (`graphs.decode`); the host reads the exit once a chunk.
 """
 
 from __future__ import annotations
@@ -126,6 +129,7 @@ class CAPE(nn.Module):
         self.to(device)
         self._cast(torch.bfloat16 if cfg.bf16 else torch.float32)
         self._pe_cache: Dict[Tuple, torch.Tensor] = {}
+        self._norm_cache: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
         self.eval()
 
     def init_weights(self, g: torch.Generator) -> None:
@@ -186,6 +190,18 @@ class CAPE(nn.Module):
             self._pe_cache[key] = pe
         return pe
 
+    def _imagenet_stats(self, device) -> Tuple[torch.Tensor, ...]:
+        """The ImageNet mean and std as fp32 tensors on `device`, made once
+        (a copy from host memory cannot run while a CUDA graph captures)."""
+        stats = self._norm_cache.get(device)
+        if stats is None:
+            with torch.inference_mode(False):
+                stats = tuple(torch.as_tensor(v, dtype=torch.float32,
+                                              device=device)
+                              for v in (IMAGENET_MEAN, IMAGENET_STD))
+            self._norm_cache[device] = stats
+        return stats
+
     def encode_image(self, images: torch.Tensor,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
@@ -199,8 +215,7 @@ class CAPE(nn.Module):
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
             if self.cfg.image_norm:
-                mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-                std = torch.as_tensor(IMAGENET_STD, device=images.device)
+                mean, std = self._imagenet_stats(images.device)
                 images = (images - mean) / std
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         feats = self.backbone(x)
@@ -274,7 +289,176 @@ class CAPE(nn.Module):
 
 
 # ----------------------------------------------------------------------
+#: tokens decoded between two host reads of "has every sample finished?",
+#: eagerly and in the captured decode (`graphs.decode`). A read costs a
+#: device sync and a relaunch; a token run after the batch has finished
+#: costs its device time and writes nothing. On an NVIDIA H100 80GB HBM3
+#: (700 W) a replayed token body of the flagship decode at batch 8 takes
+#: ~4.3 ms of device time and a read far less, so every token past the
+#: end costs more than the reads a longer chunk saves: the captured decode
+#: of 17 tokens took 131.7 ms at 1, 138.9 at 2, 146.8 at 4 and 163.9 at 8
+#: (medians of 9, `chip_smoke.py`'s chunk sweep); of 7 tokens 70-84 ms
+#: at every chunk, within the run's spread.
+DECODE_CHUNK = 1
+
+
+def decode_prologue(model: CAPE, images, support_coords, support_mask,
+                    skeleton_edges, length: int) -> Dict:
+    """Everything of a decode before its first token: the image and the
+    support encoded, the decode-time constants (`decode_static`), KV caches
+    of `length` slots, the BOS token state, the device position (a 0-d
+    int64, the JAX `while_loop`'s `i`) and the (B, length, ...) output
+    buffers. Returns the decode's carry: a dict of device tensors that
+    `decode_token` advances in place, so that a captured CUDA graph finds
+    them at the same addresses on every replay."""
+    cfg = model.cfg
+    dev = model.device
+    tok = DiscreteTokenizer(num_bins=cfg.num_bins, seq_len=cfg.seq_len)
+    B = support_coords.shape[0]
+    memory = model.encode_image(images)
+    support = model.encode_support(support_coords, support_mask,
+                                   skeleton_edges)
+    mem_values, support_kvs = model.decode_static(memory, support)
+    # initial token state: BOS with deltas (0, 0) (`roomformer_v2.py:362-383`)
+    bos = torch.full((B, 1), tok.bos, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    return {
+        "mem_values": mem_values, "support_kvs": support_kvs,
+        "support_mask": support_mask,
+        "caches": model.decoder.init_caches(B, length, dev),
+        "tokens": {"seq11": bos, "seq12": bos.clone(), "seq21": bos.clone(),
+                   "seq22": bos.clone(), "delta_x1": zeros,
+                   "delta_y1": zeros.clone(), "delta_x2": zeros + 1.0,
+                   "delta_y2": zeros + 1.0},
+        "pos": torch.zeros((), dtype=torch.int64, device=dev),
+        "unfinished": torch.ones((B,), dtype=torch.bool, device=dev),
+        "logits": torch.zeros((B, length, 3), dtype=torch.float32,
+                              device=dev),
+        "coords": torch.zeros((B, length, 2), dtype=torch.float32,
+                              device=dev),
+        "valid": torch.zeros((B, length), dtype=torch.bool, device=dev),
+        "active": torch.zeros((B, length), dtype=torch.bool, device=dev),
+    }
+
+
+def decode_pending(carry: Dict) -> torch.Tensor:
+    """0-d bool on the device: whether the next token would run, i.e. some
+    sample is unfinished and the position is below the cap (the JAX
+    `while_loop`'s condition)."""
+    return carry["unfinished"].any() & (carry["pos"] < carry["logits"].shape[1])
+
+
+def decode_token(model: CAPE, carry: Dict, force_length=None) -> None:
+    """One token of the decode, in place on `carry` (`decode_prologue`),
+    with no host read: every write is masked by `decode_pending`, so a
+    token run after every sample has finished, or at the cap, changes
+    nothing that the outputs read. Any number of calls past the end
+    therefore returns what a loop that stopped exactly returns, the JAX
+    `while_loop`'s result. `force_length` is an int or a 0-d int64 tensor
+    on the device."""
+    cfg = model.cfg
+    nb = cfg.num_bins
+    tok = DiscreteTokenizer(num_bins=nb, seq_len=cfg.seq_len)
+    go = decode_pending(carry)
+    L = carry["logits"].shape[1]
+    pos = carry["pos"].clamp(max=L - 1)     # in range past the cap too
+    at = pos.reshape(1)
+    unfinished = carry["unfinished"]
+    logits, ref, _ = model.decode_step(
+        carry["tokens"], pos, carry["mem_values"], carry["support_kvs"],
+        carry["support_mask"], carry["caches"])
+    logits = logits.float()[:, 0]                      # (B, 3)
+    coords = ref.float()[:, 0]                         # (B, 2)
+    cls = logits.argmax(dim=-1)                        # (B,)
+
+    # token-type branching (`roomformer_v2.py:530-597`):
+    # EOS before min_len is treated as a coordinate
+    if force_length is not None:
+        is_eos = (pos >= force_length - 1).expand(cls.shape)
+    else:
+        is_eos = (cls == TokenType.eos) & (pos >= cfg.min_decode_len)
+    is_coord = (cls == TokenType.coord) | (
+        (cls == TokenType.eos) & (pos < cfg.min_decode_len))
+    emit_coord = is_coord & unfinished
+
+    xy = coords.clamp(0.0, 1.0)
+    q = xy * (nb - 1)
+    xf = torch.floor(q[:, 0]).to(torch.int64)
+    yf = torch.floor(q[:, 1]).to(torch.int64)
+    xc = torch.ceil(q[:, 0]).to(torch.int64)
+    yc = torch.ceil(q[:, 1]).to(torch.int64)
+    dx = q[:, 0] - torch.floor(q[:, 0])
+    dy = q[:, 1] - torch.floor(q[:, 1])
+
+    special = torch.where(is_eos, tok.eos, tok.sep)
+
+    def pick(coord_id):
+        """coord corner id if coord; sep/eos/pad specials otherwise."""
+        live = torch.where(emit_coord, coord_id, special)
+        return torch.where(unfinished, live, tok.pad)[:, None]
+
+    d_x = torch.where(emit_coord, dx, 0.0)[:, None]
+    d_y = torch.where(emit_coord, dy, 0.0)[:, None]
+    new = {"seq11": pick(xf * nb + yf), "seq12": pick(xf * nb + yc),
+           "seq21": pick(xc * nb + yf), "seq22": pick(xc * nb + yc),
+           "delta_x1": d_x, "delta_y1": d_y,
+           "delta_x2": 1.0 - d_x, "delta_y2": 1.0 - d_y}
+    for k, v in new.items():   # read only by the next token, which is
+        carry["tokens"][k].copy_(v)   # masked as this one is
+    for k, row in (("logits", logits), ("coords", xy),
+                   ("valid", emit_coord), ("active", unfinished)):
+        buf = carry[k]
+        kept = buf.index_select(1, at)[:, 0]
+        buf.index_copy_(1, at, torch.where(go, row, kept)[:, None])
+    unfinished.copy_(unfinished & ~(is_eos & go))
+    carry["pos"].add_(go.long())
+
+
+def decode_outputs(carry: Dict, seq_len: int) -> Dict[str, torch.Tensor]:
+    """The decode's result from its carry, in new tensors (a captured
+    graph's buffers are overwritten by its next replay): the (B, seq_len,
+    ...) buffers, padded past a cap, `lengths` and `unfinished`."""
+    L = carry["logits"].shape[1]
+    out = {"pred_logits": carry["logits"], "pred_coords": carry["coords"],
+           "gen_valid": carry["valid"]}
+    # restore the (B, seq_len, ...) caller contract
+    out = {k: torch.nn.functional.pad(
+        v, (0, 0, 0, seq_len - L) if v.dim() == 3 else (0, seq_len - L))
+        for k, v in out.items()}
+    out["lengths"] = carry["active"].sum(dim=1).to(torch.int32)
+    out["unfinished"] = carry["unfinished"].clone()
+    return out
+
+
+def decode_length(cfg: CAPEConfig, max_len: Optional[int]) -> int:
+    """The decode's token cap and KV-cache length."""
+    return cfg.seq_len if max_len is None else min(int(max_len), cfg.seq_len)
+
+
 @torch.inference_mode()
+def decode_chunked(model: CAPE, images, support_coords, support_mask,
+                   skeleton_edges, force_length: Optional[int] = None,
+                   max_len: Optional[int] = None,
+                   chunk: int = DECODE_CHUNK) -> Dict[str, torch.Tensor]:
+    """`autoregressive_decode` run eagerly as the captured decode runs it:
+    the prologue, then chunks of `chunk` token bodies (the last one cut at
+    the cap), with a host read of `decode_pending` between two chunks. The
+    result does not depend on `chunk`."""
+    dev = model.device
+    images, support_coords, support_mask, skeleton_edges = (
+        torch.as_tensor(x, device=dev) for x in
+        (images, support_coords, support_mask, skeleton_edges))
+    L = decode_length(model.cfg, max_len)
+    carry = decode_prologue(model, images, support_coords, support_mask,
+                            skeleton_edges, L)
+    for start in range(0, L, chunk):
+        for _ in range(min(chunk, L - start)):
+            decode_token(model, carry, force_length)
+        if start + chunk < L and not bool(decode_pending(carry)):
+            break
+    return decode_outputs(carry, model.cfg.seq_len)
+
+
 def autoregressive_decode(
     model: CAPE,
     images,
@@ -284,14 +468,16 @@ def autoregressive_decode(
     force_length: Optional[int] = None,
     max_len: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Autoregressive generation on the model's device.
+    """Autoregressive generation on the model's device, eagerly.
 
     The encoder runs once, then up to seq_len tokens are generated with
-    static KV caches, stopping as soon as every sample has emitted EOS.
-    Token-type branching is vectorized with `torch.where`, and predicted
-    coordinates are re-tokenized (floor/ceil corner ids + deltas) on the
-    device. Output buffers are (B, seq_len, ...); steps never executed stay
-    at their defaults (zero logits/coords, valid=False).
+    static KV caches, stopping once every sample has emitted EOS (read on
+    the host every `DECODE_CHUNK` tokens; see `decode_token`). Token-type
+    branching is vectorized with `torch.where`, and predicted coordinates
+    are re-tokenized (floor/ceil corner ids + deltas) on the device. Output
+    buffers are (B, seq_len, ...); steps never executed stay at their
+    defaults (zero logits/coords, valid=False). `eval.evaluate.decode`
+    replays the same bodies as captured CUDA graphs on the card.
 
     Inputs may be numpy arrays or tensors; they move to the model's device.
 
@@ -307,95 +493,5 @@ def autoregressive_decode(
     every sample generate exactly that many tokens (a benchmark knob); it
     may exceed the cap, which then truncates with unfinished=True.
     """
-    cfg = model.cfg
-    dev = model.device
-    tok = DiscreteTokenizer(num_bins=cfg.num_bins, seq_len=cfg.seq_len)
-    images, support_coords, support_mask, skeleton_edges = (
-        torch.as_tensor(x, device=dev) for x in
-        (images, support_coords, support_mask, skeleton_edges))
-    B = support_coords.shape[0]
-    L = cfg.seq_len if max_len is None else min(int(max_len), cfg.seq_len)
-    nb = cfg.num_bins
-
-    memory = model.encode_image(images)
-    support = model.encode_support(support_coords, support_mask,
-                                   skeleton_edges)
-    mem_values, support_kvs = model.decode_static(memory, support)
-    caches = model.decoder.init_caches(B, L, dev)
-
-    # initial token state: BOS with deltas (0, 0) (`roomformer_v2.py:362-383`)
-    bos = torch.full((B, 1), tok.bos, dtype=torch.int64, device=dev)
-    zeros = torch.zeros((B, 1), dtype=torch.float32, device=dev)
-    state = {"seq11": bos, "seq12": bos, "seq21": bos, "seq22": bos,
-             "delta_x1": zeros, "delta_y1": zeros,
-             "delta_x2": zeros + 1.0, "delta_y2": zeros + 1.0}
-    unfinished = torch.ones((B,), dtype=torch.bool, device=dev)
-    logits_buf = torch.zeros((B, L, 3), dtype=torch.float32, device=dev)
-    coords_buf = torch.zeros((B, L, 2), dtype=torch.float32, device=dev)
-    valid_buf = torch.zeros((B, L), dtype=torch.bool, device=dev)
-    active_buf = torch.zeros((B, L), dtype=torch.bool, device=dev)
-    eos = torch.tensor(tok.eos, device=dev)
-    sep = torch.tensor(tok.sep, device=dev)
-    pad = torch.tensor(tok.pad, device=dev)
-
-    for i in range(L):
-        # the all-EOS early exit reads `unfinished` on the host: one device
-        # sync per step (the JAX while_loop keeps it on the device)
-        if not bool(unfinished.any()):
-            break
-        logits, ref, caches = model.decode_step(
-            state, i, mem_values, support_kvs, support_mask, caches)
-        logits = logits.float()[:, 0]                      # (B, 3)
-        coords = ref.float()[:, 0]                         # (B, 2)
-        cls = logits.argmax(dim=-1)                        # (B,)
-
-        # token-type branching (`roomformer_v2.py:530-597`):
-        # EOS before min_len is treated as a coordinate
-        if force_length is not None:
-            is_eos = torch.full((B,), i >= force_length - 1,
-                                dtype=torch.bool, device=dev)
-        else:
-            is_eos = (cls == TokenType.eos) & (i >= cfg.min_decode_len)
-        is_coord = (cls == TokenType.coord) | (
-            (cls == TokenType.eos) & (i < cfg.min_decode_len))
-        emit_coord = is_coord & unfinished
-
-        xy = coords.clamp(0.0, 1.0)
-        q = xy * (nb - 1)
-        xf = torch.floor(q[:, 0]).to(torch.int64)
-        yf = torch.floor(q[:, 1]).to(torch.int64)
-        xc = torch.ceil(q[:, 0]).to(torch.int64)
-        yc = torch.ceil(q[:, 1]).to(torch.int64)
-        dx = q[:, 0] - torch.floor(q[:, 0])
-        dy = q[:, 1] - torch.floor(q[:, 1])
-
-        special = torch.where(is_eos, eos, sep)
-
-        def pick(coord_id):
-            """coord corner id if coord; sep/eos/pad specials otherwise."""
-            live = torch.where(emit_coord, coord_id, special)
-            return torch.where(unfinished, live, pad)[:, None]
-
-        d_x = torch.where(emit_coord, dx, 0.0)[:, None]
-        d_y = torch.where(emit_coord, dy, 0.0)[:, None]
-        state = {"seq11": pick(xf * nb + yf), "seq12": pick(xf * nb + yc),
-                 "seq21": pick(xc * nb + yf), "seq22": pick(xc * nb + yc),
-                 "delta_x1": d_x, "delta_y1": d_y,
-                 "delta_x2": 1.0 - d_x, "delta_y2": 1.0 - d_y}
-
-        logits_buf[:, i] = logits
-        coords_buf[:, i] = xy
-        valid_buf[:, i] = emit_coord
-        active_buf[:, i] = unfinished
-        unfinished = unfinished & ~is_eos
-
-    lengths = active_buf.sum(dim=1).to(torch.int32)
-    out = {"pred_logits": logits_buf, "pred_coords": coords_buf,
-           "gen_valid": valid_buf}
-    if L < cfg.seq_len:  # restore the (B, seq_len, ...) caller contract
-        out = {k: torch.nn.functional.pad(
-            v, (0, 0, 0, cfg.seq_len - L) if v.dim() == 3
-            else (0, cfg.seq_len - L)) for k, v in out.items()}
-    out["lengths"] = lengths
-    out["unfinished"] = unfinished
-    return out
+    return decode_chunked(model, images, support_coords, support_mask,
+                          skeleton_edges, force_length, max_len)

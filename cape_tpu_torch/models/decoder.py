@@ -188,18 +188,20 @@ class DecoderLayer(nn.Module):
         #                                    (CAPE_DECODE_PREQUAD=0)
         spatial_shapes: Sequence[Tuple[int, int]],
         cache: LayerCache,
-        pos_index: int,
+        pos_index: torch.Tensor,
         support_k: torch.Tensor,
         support_v: torch.Tensor,
         support_mask: torch.Tensor,
     ) -> Tuple[torch.Tensor, LayerCache]:
         """One token against the KV cache. The cache is written in place at
-        `pos_index` (the JAX package returns an updated copy)."""
+        `pos_index`, a 0-d int64 tensor on the device (the JAX package
+        returns an updated copy), so that no host value enters the step."""
         q = self.attn_q(tgt_t) + query_pos_t
         k_t, v_t = self.self_attn.project_kv_pre(
             self.attn_k(tgt_t), self.attn_v(tgt_t))      # (B, H, 1, Dh)
-        cache.k[:, :, pos_index:pos_index + 1] = k_t
-        cache.v[:, :, pos_index:pos_index + 1] = v_t
+        at = pos_index.reshape(1)
+        cache.k.index_copy_(2, at, k_t)
+        cache.v.index_copy_(2, at, v_t)
         # mask future (unwritten) cache slots
         L = cache.k.shape[2]
         future = torch.arange(L, device=q.device)[None, :] > pos_index
@@ -420,7 +422,7 @@ class Decoder(nn.Module):
     def forward_step(
         self,
         token_inputs: Dict[str, torch.Tensor],   # (B, 1) tensors
-        pos_index: int,
+        pos_index,                                # int or 0-d int64 tensor
         mem_values: List[torch.Tensor],          # quad slabs, or plain
         #                                          values (precompute_static)
         spatial_shapes,
@@ -428,7 +430,9 @@ class Decoder(nn.Module):
         support_mask: torch.Tensor,
         caches: List[LayerCache],
     ):
-        """One autoregressive step.
+        """One autoregressive step at `pos_index`: a Python int, or a 0-d
+        int64 tensor on the device, as the decode loop carries it (the JAX
+        `while_loop` carries `i` so).
 
         Returns:
             logits: (B, 1, num_classes) — final layer class head
@@ -442,7 +446,10 @@ class Decoder(nn.Module):
             token_inputs["delta_y1"], token_inputs["delta_y2"],
         )
         B = x.shape[0]
-        anchor = self.anchors()[pos_index:pos_index + 1]       # (1, 2)
+        if not isinstance(pos_index, torch.Tensor):
+            pos_index = torch.tensor(pos_index, device=x.device)
+        pos_index = pos_index.long()
+        anchor = self.anchors().index_select(0, pos_index.reshape(1))  # (1, 2)
         ref = anchor[None].expand(B, 1, 2)
 
         for lid, layer in enumerate(self.layers):

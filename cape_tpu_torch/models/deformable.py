@@ -202,18 +202,32 @@ class DeformableEncoder(nn.Module):
                  use_pallas: bool = False):
         super().__init__()
         self.remat = remat
+        self._refs: Dict[Tuple, torch.Tensor] = {}
         self.layers = nn.ModuleList([
             DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads,
                                    n_points, use_pallas=use_pallas)
             for _ in range(num_layers)])
+
+    def _reference_points(self, spatial_shapes, device) -> torch.Tensor:
+        """`encoder_reference_points` on `device`, made once per shapes and
+        device (outside inference mode, so that a model decoded first still
+        trains; a copy from host memory cannot run while a CUDA graph
+        captures)."""
+        key = (tuple(map(tuple, spatial_shapes)), device)
+        t = self._refs.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = torch.as_tensor(encoder_reference_points(spatial_shapes),
+                                    device=device)
+            self._refs[key] = t
+        return t
 
     def forward(self, src, pos, spatial_shapes,
                 generator: Optional[torch.Generator] = None):
         """`remat` (the JAX package's `nn.remat` per layer) applies only
         where autograd records: it trades the layers' saved activations for
         a second forward in the backward."""
-        ref = torch.as_tensor(encoder_reference_points(spatial_shapes),
-                              device=src.device)[None]
+        ref = self._reference_points(spatial_shapes, src.device)[None]
         ref = ref.expand(src.shape[0], *ref.shape[1:])
         remat = self.remat and torch.is_grad_enabled()
         out = src

@@ -16,7 +16,7 @@ call passes a generator.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,6 +26,23 @@ from .attention import MultiHeadAttention
 from .graph import GCNLayer, adj_from_skeleton
 from .layers import Dense, LayerNorm, dropout
 from .position_encoding import coords_sine_embed, interleaved_1d_table
+
+
+def _sequence_pe(cache: Dict[Tuple, torch.Tensor], rows: int, n: int,
+                 dim: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The first `n` rows of the (rows, dim) 1D sequence PE table in
+    `dtype` on `device`, the table made once per (rows, dtype, device) and
+    kept in `cache` (outside inference mode, so that a model decoded first
+    still trains; a copy from host memory cannot run while a CUDA graph
+    captures)."""
+    key = (rows, dtype, device)
+    table = cache.get(key)
+    if table is None:
+        with torch.inference_mode(False):
+            table = torch.as_tensor(interleaved_1d_table(rows, dim),
+                                    dtype=dtype, device=device)
+        cache[key] = table
+    return table[:n]
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -67,6 +84,7 @@ class GeometricSupportEncoder(nn.Module):
         self.hidden_dim = hidden_dim
         self.use_gcn = use_gcn
         self.max_seq_pe = max_seq_pe
+        self._pe_tables: Dict[Tuple, torch.Tensor] = {}
         self.coord_mlp_0 = Dense(2, hidden_dim)
         self.coord_mlp_1 = Dense(hidden_dim, hidden_dim)
         self.gcn = nn.ModuleList(
@@ -92,8 +110,8 @@ class GeometricSupportEncoder(nn.Module):
         h = h + coords_sine_embed(coords, self.hidden_dim // 2).to(h.dtype)
 
         # 3. 1D sequence PE (which keypoint in the ordering)
-        pe = interleaved_1d_table(self.max_seq_pe, self.hidden_dim)[:N]
-        h = h + torch.as_tensor(pe, dtype=h.dtype, device=h.device)
+        h = h + _sequence_pe(self._pe_tables, self.max_seq_pe, N,
+                             self.hidden_dim, h.dtype, h.device)
 
         # 4. optional GCN pre-encoding over the skeleton
         if self.use_gcn and skeleton_edges is not None:
@@ -127,6 +145,7 @@ class SupportPoseGraphEncoder(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         self.hidden_dim = hidden_dim
+        self._pe_tables: Dict[Tuple, torch.Tensor] = {}
         self.coord_mlp_0 = Dense(2, hidden_dim)
         self.coord_mlp_1 = Dense(hidden_dim, hidden_dim)
         self.edge_embedding = nn.Embedding(2, hidden_dim)
@@ -156,8 +175,8 @@ class SupportPoseGraphEncoder(nn.Module):
             combined = torch.cat([h, edge_emb * scale.to(h.dtype)], dim=-1)
             h = self.coord_edge_proj(combined)
 
-        pe = interleaved_1d_table(max(N, 64), self.hidden_dim)[:N]
-        h = h + torch.as_tensor(pe, dtype=h.dtype, device=h.device)
+        h = h + _sequence_pe(self._pe_tables, max(N, 64), N,
+                             self.hidden_dim, h.dtype, h.device)
         for layer in self.layers:
             h = layer(h, key_padding_mask=mask, generator=generator)
         return self.final_norm(h)

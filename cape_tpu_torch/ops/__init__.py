@@ -16,7 +16,26 @@ from .msda import (
 )
 from .msda_kernel import ms_deform_attn_pallas, msda_forward
 
+
+
+def launch_counters():
+    """Every kernel's launch counter: name -> (its wrapper, the wrapper's
+    counter attribute). A wrapper adds one where it launches its kernel;
+    a replayed CUDA graph adds the launches it holds (`graphs`)."""
+    from . import gather, msda_fused, msda_kernel
+
+    return {"quad_gather": (gather.quad_gather, "launches"),
+            "quad_scatter": (gather.quad_scatter, "launches"),
+            "msda_forward": (msda_kernel.msda_forward, "launches"),
+            "fused_fwd": (msda_fused.fused_level_sample, "launches"),
+            "fused_bwd": (msda_fused.fused_level_sample, "bwd_launches"),
+            "quadfused_fwd": (msda_fused.quadfused_level_sample, "launches"),
+            "quadfused_bwd": (msda_fused.quadfused_level_sample,
+                              "bwd_launches")}
+
+
 __all__ = [
+    "launch_counters",
     "quad_gather", "quad_scatter", "msda_forward", "ms_deform_attn",
     "ms_deform_attn_core", "ms_deform_attn_core_naive",
     "ms_deform_attn_core_prequad", "precompute_quad_slab",

@@ -75,7 +75,8 @@ def _corners(slab: torch.Tensor, gi: torch.Tensor, Wl: Optional[int]):
         idx = g64 * 4 + torch.arange(4, device=gi.device)
         valid = ((g64 >= 0) & (g64 < n)).expand(-1, -1, 4)
         return slab.reshape(BH, n * 4, Dh), idx, valid
-    idx = g64 + torch.tensor([0, 1, Wl, Wl + 1], device=gi.device)
+    c = torch.arange(4, device=gi.device)     # corner shifts 0, 1, Wl, Wl+1
+    idx = g64 + c % 2 + c // 2 * Wl
     return slab, idx, (idx >= 0) & (idx < slab.shape[1])
 
 

@@ -8,7 +8,9 @@ prototype and returns pixel keypoints in the original image frame:
   input, shipped as uint8 (the model normalizes on the device);
 - requests pad to a fixed `batch_size` (padding rows are dropped from the
   results), so every decode runs at one shape;
-- one batched autoregressive decode on the card (`eval.evaluate.decode`);
+- one batched autoregressive decode on the card (`eval.evaluate.decode`:
+  replays of the CUDA graphs captured at the first request of the
+  batch's shape, one host read per `models.cape.DECODE_CHUNK` tokens);
 - host postprocessing: trim to the category keypoint count, map back
   through resize + crop into original pixel coordinates.
 

@@ -56,6 +56,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import CAPEConfig
 from ..data.episodic import (EpisodicSampler, episode_batches,
                              eval_batch_plan, validate_episode_batch)
@@ -197,6 +198,8 @@ def train_loop(
     train_step = (make_scan_train_step(model, cfg, steps_per_epoch)
                   if spd > 1 else
                   make_train_step(model, cfg, steps_per_epoch))
+    if main:
+        print(graphs.describe_step_route(model, cfg), flush=True)
     eval_loss_fn = make_eval_loss_fn(model, cfg)
     on_device = functools.partial(to_device, device=device)
 

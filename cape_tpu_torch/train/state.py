@@ -16,6 +16,13 @@ of fp32 tensors (`torch._foreach_*`), in the chain's order:
    are averaged (Welford, as optax does), the chain runs on the average
    every k-th micro-step, and the schedule counts real updates only.
 
+The host keeps the counts (`OptState`'s ints, the schedule's source of
+truth) and writes the scalars they give into a small fp32 tensor on the
+masters' device before each call (`FusedAdamW.prepare`): the fold's
+divisor, Adam's bias corrections and each group's `-lr`. The device work
+(`fold`, `apply`) reads them from there and bakes in no host value, so
+that a captured CUDA graph of it stays right at every step (`graphs`).
+
 fp32 master parameters: the optimizer state owns an fp32 copy of every
 parameter and updates it; a bf16 model's weights are refreshed from the
 masters after each real update (flax keeps fp32 parameters and computes in
@@ -39,6 +46,11 @@ from ..config import CAPEConfig
 from ..models.backbone import FrozenAffine
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+#: the parameter groups, each with its own learning rate
+GROUPS = ("base", "backbone", "offsets", "frozen")
+#: the device scalars of one optimizer call, in `OptState.hyper`: the
+#: fold's divisor, the bias corrections, each group's -lr
+HYPER = ("fold", "bc1", "bc2") + tuple(f"lr_{g}" for g in GROUPS)
 
 
 def make_lr_schedule(cfg: CAPEConfig, base_lr: float,
@@ -128,6 +140,9 @@ class OptState:
     sched_count: int = 0             # the group-LR link's count
     mini_step: int = 0               # MultiStepsState.mini_step
     gradient_step: int = 0           # MultiStepsState.gradient_step
+    # this call's scalars (`HYPER`), fp32 on the masters' device; written
+    # by `FusedAdamW.prepare`, not a part of the checkpoint
+    hyper: Optional[torch.Tensor] = field(default=None, repr=False)
 
 
 class FusedAdamW:
@@ -183,34 +198,62 @@ class FusedAdamW:
             return [torch.zeros_like(m) for m in masters]
 
         return OptState(names, [labels[n] for n in names], masters, zeros(),
-                        zeros(), zeros())
+                        zeros(), zeros(),
+                        hyper=torch.zeros(len(HYPER), dtype=torch.float32,
+                                          device=masters[0].device))
 
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
                params: Sequence[torch.Tensor]) -> bool:
         """Fold one micro-step's gradients in; on every k-th, apply the
         chain to the fp32 masters and refresh `params` from them. Returns
         whether this was a real update."""
+        emit = self.prepare(state)
+        self.fold(grads, state)
+        if emit:
+            self.apply(state, params)
+        return emit
+
+    def prepare(self, state: OptState) -> bool:
+        """The host's part of one call: advance the counts and write the
+        scalars they give into `state.hyper` (a copy queued on the current
+        stream, ahead of the device work that reads it). Returns whether
+        the call is a real update, which the host decides alone."""
+        f32 = np.float32
+        fold = float(state.mini_step + 1)
+        emit = state.mini_step == self.every_k - 1
+        state.mini_step = (state.mini_step + 1) % self.every_k
+        bc1 = bc2 = 1.0
+        lrs = dict.fromkeys(GROUPS, 0.0)
+        if emit:
+            # bias corrections at the incremented count; the group LRs at
+            # the count before it increments
+            state.adam_count += 1
+            bc1 = float(f32(1) - f32(ADAM_B1) ** f32(state.adam_count))
+            bc2 = float(f32(1) - f32(ADAM_B2) ** f32(state.adam_count))
+            lrs = self.group_lrs(state.sched_count)
+            state.sched_count += 1
+            state.gradient_step += 1
+        host = torch.tensor([fold, bc1, bc2] + [-lrs[g] for g in GROUPS],
+                            dtype=torch.float32)
+        if state.hyper.is_cuda:
+            host = host.pin_memory()
+        state.hyper.copy_(host, non_blocking=True)
+        return emit
+
+    def fold(self, grads: Sequence[torch.Tensor], state: OptState) -> None:
+        """Fold one micro-step's gradients into the running mean (Welford,
+        as optax.MultiSteps), dividing by `hyper`'s fold entry."""
         grads = [g.float() for g in grads]
         acc = state.acc_grads
         delta = torch._foreach_sub(grads, acc)
-        torch._foreach_div_(delta, float(state.mini_step + 1))
+        torch._foreach_div_(delta, state.hyper[HYPER.index("fold")])
         torch._foreach_add_(acc, delta)
-        del delta
-        emit = state.mini_step == self.every_k - 1
-        state.mini_step = (state.mini_step + 1) % self.every_k
-        if not emit:
-            return False
-        self._apply(acc, state)
-        torch._foreach_zero_(acc)
-        state.gradient_step += 1
-        with torch.no_grad():
-            for p, m in zip(params, state.masters):
-                if p.data_ptr() != m.data_ptr():
-                    p.copy_(m)
-        return True
 
-    def _apply(self, g: List[torch.Tensor], state: OptState) -> None:
+    def apply(self, state: OptState, params: Sequence[torch.Tensor]) -> None:
+        """The chain on the averaged gradient, the fp32 masters updated and
+        `params` refreshed from them, the average zeroed."""
         cfg = self.cfg
+        g, hyper = state.acc_grads, state.hyper
         # 1. clip: (t / norm) * max_norm when norm >= max_norm
         norm = global_norm(g)
         one = torch.ones((), dtype=torch.float32, device=norm.device)
@@ -218,32 +261,32 @@ class FusedAdamW:
         u = torch._foreach_div(g, torch.where(clip, norm, one))
         torch._foreach_mul_(u, torch.where(clip, one * cfg.clip_max_norm,
                                            one))
-        # 2. Adam moments, bias-corrected at the incremented count
+        # 2. Adam moments, bias-corrected
         torch._foreach_mul_(state.mu, ADAM_B1)
         torch._foreach_add_(state.mu, u, alpha=1 - ADAM_B1)
         torch._foreach_mul_(state.nu, ADAM_B2)
         torch._foreach_addcmul_(state.nu, u, u, value=1 - ADAM_B2)
-        state.adam_count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(ADAM_B1) ** f32(state.adam_count))
-        bc2 = float(f32(1) - f32(ADAM_B2) ** f32(state.adam_count))
         del u
-        u = torch._foreach_div(state.mu, bc1)
-        den = torch._foreach_div(state.nu, bc2)
+        u = torch._foreach_div(state.mu, hyper[HYPER.index("bc1")])
+        den = torch._foreach_div(state.nu, hyper[HYPER.index("bc2")])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, ADAM_EPS)
         torch._foreach_div_(u, den)
         del den
         # 3. decoupled weight decay on every leaf
         torch._foreach_add_(u, state.masters, alpha=cfg.weight_decay)
-        # 4. per-group -lr at the count before it increments
-        lrs = self.group_lrs(state.sched_count)
-        state.sched_count += 1
-        for label, lr in lrs.items():
+        # 4. per-group -lr
+        for label in GROUPS:
             idx = [i for i, l in enumerate(state.labels) if l == label]
             if idx:
-                torch._foreach_mul_([u[i] for i in idx], -lr)
+                torch._foreach_mul_([u[i] for i in idx],
+                                    hyper[HYPER.index(f"lr_{label}")])
         torch._foreach_add_(state.masters, u)
+        torch._foreach_zero_(g)
+        with torch.no_grad():
+            for p, m in zip(params, state.masters):
+                if p.data_ptr() != m.data_ptr():
+                    p.copy_(m)
 
 
 @dataclass

@@ -110,7 +110,30 @@ and exits non-zero at the first phase that fails:
    test episodes a fold, the summary; fold 2's peak memory at most 5%
    above fold 1's), `cli.audit` on fold 1's checkpoint, `cli.kshot_demo`
    at the flagship width cut to 2 epochs and 16 episodes a protocol, and
-   both GT visualisations on 4 images. A CLI that exits fails the run.
+   both GT visualisations on 4 images. A CLI that exits fails the run;
+13. compile once, replay many (`phase_graphs`, run after phase 3): the
+   decode and the training micro-step replay CUDA graphs captured at their
+   first call (`cape_tpu_torch.graphs`) on every path above, and here
+   they are held against the same bodies run eagerly: the flagship decode
+   bit-equal under `auto`, `fused`, `fusedq` (prepacked and with
+   `CAPE_DECODE_PREQUAD=0`), `CAPE_DECODE_PREQUAD=0` and
+   `use_pallas_msda`, at the random weights' length and at 17 tokens,
+   with the host's reads of the exit flag per request counted under
+   CUDA's sync debug mode; the decode timed at every `DECODE_CHUNK` of a
+   sweep; a decode step's ms; a flagship request eager and captured in
+   turns (ms, profiled device busy and idle share, peak memory, the
+   profiler's count of gather kernels in a replay against the counter);
+   two real updates of the flagship (8 micro-steps of 4 images) eager and
+   captured under `fused` (masters bit-equal at dropout 0) and `auto`
+   (within `RESUME_AUTO_TOL`), and at dropout 0.1 (whether the masks
+   match); a `steps_per_dispatch` group of 4 with no host sync, bit-equal
+   to single steps. Phase 6's sized eval and phase 8's loop also run
+   once with the decode / the micro-step eager, for their times.
+
+Launch counters: a captured graph's warm-up and capture count nothing; a
+replay adds the launches it holds, so every count is that of the kernels
+the card ran on the path (a decode runs whole chunks of `DECODE_CHUNK`
+token bodies, `_bodies`).
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. A kernel has
@@ -286,16 +309,9 @@ def selection(**env):
 
 def _kernel_counters():
     """name in the kernels line -> (wrapper, its counter attribute)."""
-    from cape_tpu_torch.ops import gather, msda_fused, msda_kernel
+    from cape_tpu_torch.ops import launch_counters
 
-    return {"quad_gather": (gather.quad_gather, "launches"),
-            "quad_scatter": (gather.quad_scatter, "launches"),
-            "msda_forward": (msda_kernel.msda_forward, "launches"),
-            "fused_fwd": (msda_fused.fused_level_sample, "launches"),
-            "fused_bwd": (msda_fused.fused_level_sample, "bwd_launches"),
-            "quadfused_fwd": (msda_fused.quadfused_level_sample, "launches"),
-            "quadfused_bwd": (msda_fused.quadfused_level_sample,
-                              "bwd_launches")}
+    return launch_counters()
 
 
 def _reset_counts():
@@ -1113,7 +1129,8 @@ def phase_serving(torch, np, card):
     default_counts = _counts()
     default_res = res
     L = cfg.num_feature_levels
-    want = sum(cfg.enc_layers * L + cfg.dec_layers * s for s in steps)
+    want = sum(cfg.enc_layers * L + cfg.dec_layers * _bodies(s)
+               for s in steps)
     print(f"default path: {default_counts} launches over 3 requests, "
           f"decode steps {steps}", flush=True)
     _check_counts(default_counts, "the default path", quad_gather=want)
@@ -1138,7 +1155,8 @@ def phase_serving(torch, np, card):
     print(f"use_pallas_msda path: {pallas_counts} launches over 1 request, "
           f"decode steps {s}, {ms_p:.3f} ms ({card})", flush=True)
     _check_counts(pallas_counts, "the use_pallas_msda path",
-                  msda_forward=cfg.enc_layers, quad_gather=cfg.dec_layers * s)
+                  msda_forward=cfg.enc_layers,
+                  quad_gather=cfg.dec_layers * _bodies(s))
     del model_p, pred_p
 
     # -- CAPE_MSDA_GATHER=fused|fusedq on the same weights: the last default
@@ -1151,7 +1169,6 @@ def phase_serving(torch, np, card):
             warnings.simplefilter("always")
             pred.predict(imgs, proto, bboxes=boxes, **kw)      # warm-up
             _reset_counts()
-            n_warm = len(caught)
             t0 = time.perf_counter()
             res = pred.predict(imgs, proto, bboxes=boxes, **kw)
             torch.cuda.synchronize()
@@ -1169,7 +1186,9 @@ def phase_serving(torch, np, card):
               f"{s}, {ms:.3f} ms warm; keypoints differ from the default "
               f"path's by at most {diff:.3f} px, lengths equal: {same_len} "
               f"({card})", flush=True)
-        return counts, s, {str(w.message) for w in caught[n_warm:]
+        # the warning comes where the decode is traced: the warm-up request
+        # captures the selection's program, the timed one replays it
+        return counts, s, {str(w.message) for w in caught
                            if "CAPE_MSDA" in str(w.message)}
 
     enc = cfg.enc_layers * L
@@ -1181,18 +1200,440 @@ def phase_serving(torch, np, card):
             f"CAPE_MSDA_GATHER={impl} CAPE_DECODE_PREQUAD=0",
             CAPE_MSDA_GATHER=impl, CAPE_DECODE_PREQUAD="0")
         _check_counts(counts, f"the {impl} request",
-                      **{name: enc + cfg.dec_layers * L * s})
+                      **{name: enc + cfg.dec_layers * L * _bodies(s)})
         check(not warned, f"the {impl} request warned: {warned}")
         fused_counts[name] = counts[name]
     counts, s, warned = request(
         "CAPE_MSDA_GATHER=fused, prepacked decode", CAPE_MSDA_GATHER="fused",
         CAPE_DECODE_PREQUAD=None)
     _check_counts(counts, "the fused request with the prepacked decode",
-                  fused_fwd=enc, quad_gather=cfg.dec_layers * s)
+                  fused_fwd=enc, quad_gather=cfg.dec_layers * _bodies(s))
     check(len(warned) == 1 and "CAPE_DECODE_PREQUAD=0" in next(iter(warned)),
-          f"the prepacked decode under fused must warn once, got {warned}")
+          f"the prepacked decode under fused must warn, got {warned}")
     print(f"  its warning: {next(iter(warned))}", flush=True)
     return model, default_counts, pallas_counts, fused_counts
+
+
+# ----------------------------------------------------------------------
+#: `graphs.DECODE_CHUNK` values timed against each other by `phase_graphs`
+CHUNK_SWEEP = (1, 2, 4, 8)
+
+
+def _busy_ms(events) -> float:
+    """Union of the device kernel intervals of profiler events, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def _bodies(steps, length=200):
+    """Token bodies a decode runs to end `steps` tokens under the cap
+    `length`: whole chunks of `DECODE_CHUNK`, the last cut at the cap."""
+    from cape_tpu_torch.models.cape import DECODE_CHUNK
+
+    return min(length, -(-steps // DECODE_CHUNK) * DECODE_CHUNK)
+
+
+def _decode_inputs(torch, np, cfg, batch=8, seed=5):
+    """A served batch's model inputs on the card: seeded uint8 images at
+    the model's size and the 17-keypoint prototype, as `predict` builds
+    them."""
+    rng = np.random.default_rng(seed)
+    S, K, E = cfg.image_size, cfg.max_support_keypoints, cfg.max_skeleton_edges
+    sc = np.zeros((batch, K, 2), np.float32)
+    sm = np.ones((batch, K), bool)
+    se = np.full((batch, E, 2), -1, np.int32)
+    sc[:, :17] = PROTO_17
+    sm[:, :17] = False
+    se[:, :len(SKELETON_17)] = SKELETON_17
+    imgs = rng.integers(0, 256, (batch, S, S, 3), dtype=np.uint8)
+    return [torch.as_tensor(x, device="cuda") for x in (imgs, sc, sm, se)]
+
+
+def _sync_reads(torch, fn):
+    """`fn()` under CUDA's sync debug mode; returns its result and where
+    each host synchronisation it asked for was made (outside torch's own
+    files)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    inside = os.path.dirname(torch.__file__)   # `set_sync_debug_mode`'s own
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)
+                 and not w.filename.startswith(inside)]
+
+
+def _walls(torch, fn, n=3):
+    """Synchronised host walls of `n` calls, ms."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _held_by_programs(torch, graphs, model):
+    """(allocated, reserved) bytes that dropping `model`'s captured
+    programs gives back to the card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    graphs.clear(model)
+    torch.cuda.empty_cache()
+    return (before[0] - torch.cuda.memory_allocated(),
+            before[1] - torch.cuda.memory_reserved())
+
+
+def _graph_decodes(torch, np, model, model_p, card):
+    """Captured against eager decodes (bit-equal) for every selection, the
+    host reads per request, the chunk sweep and the decode step's ms."""
+    from cape_tpu_torch import graphs
+    from cape_tpu_torch.models.cape import DECODE_CHUNK, decode_chunked
+
+    cfg = model.cfg
+    inputs = _decode_inputs(torch, np, cfg)
+    cases = [("auto", model, {}),
+             ("fused", model, dict(CAPE_MSDA_GATHER="fused")),
+             ("fusedq", model, dict(CAPE_MSDA_GATHER="fusedq")),
+             ("fused, CAPE_DECODE_PREQUAD=0", model,
+              dict(CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")),
+             ("fusedq, CAPE_DECODE_PREQUAD=0", model,
+              dict(CAPE_MSDA_GATHER="fusedq", CAPE_DECODE_PREQUAD="0")),
+             ("CAPE_DECODE_PREQUAD=0", model, dict(CAPE_DECODE_PREQUAD="0")),
+             ("use_pallas_msda", model_p, {})]
+    reads = {}
+    for label, m, env in cases:
+        for force in (None, 17):
+            with selection(**env), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # the prepacked `fused`
+                eager = decode_chunked(m, *inputs, force_length=force)
+                graphs.clear(m)
+                first = graphs.decode(m, *inputs, force_length=force)
+                check(len(graphs.programs(m)) == 1,
+                      f"{label}: the decode captured no program")
+                _reset_counts()
+                r0 = graphs.decode.host_reads
+                again, syncs = _sync_reads(
+                    torch, lambda: graphs.decode(m, *inputs,
+                                                 force_length=force))
+                counts = _counts()
+            check(len(graphs.programs(m)) == 1,
+                  f"{label}: the second decode captured anew")
+            steps = int(eager["lengths"].max())
+            for k in eager:
+                check(torch.equal(eager[k], first[k])
+                      and torch.equal(eager[k], again[k]),
+                      f"{label}, force_length {force}: captured {k} is not "
+                      "the eager decode's")
+            n_reads = graphs.decode.host_reads - r0
+            check(n_reads == len(syncs)
+                  and n_reads <= -(-steps // DECODE_CHUNK),
+                  f"{label}: {n_reads} reads of the exit flag, host syncs "
+                  f"at {syncs}, for {steps} tokens")
+            check(sum(counts.values()) > 0,
+                  f"{label}: a replay counted no kernel launch")
+            reads[f"{label}, {steps} steps"] = n_reads
+            print(f"graphs decode {label}, force_length {force}: captured "
+                  f"== eager bit for bit ({steps} steps, "
+                  f"{_bodies(steps)} bodies); a replayed request reads the "
+                  f"exit flag {n_reads} times (ceil(steps / "
+                  f"{DECODE_CHUNK}) = {-(-steps // DECODE_CHUNK)}), then "
+                  f"its outputs once; launches {counts}", flush=True)
+
+    # the chunk sweep: the captured decode at each DECODE_CHUNK, random
+    # weights' length and a trained one's, in turns
+    sweep = {}
+    try:
+        for rep in range(3):
+            for chunk in (CHUNK_SWEEP[::-1] if rep % 2 else CHUNK_SWEEP):
+                graphs.DECODE_CHUNK = chunk
+                graphs.clear(model)
+                for force in (None, 17):
+                    graphs.decode(model, *inputs, force_length=force)
+                    sweep.setdefault((chunk, force), []).extend(_walls(
+                        torch, lambda: graphs.decode(
+                            model, *inputs, force_length=force)))
+    finally:
+        graphs.DECODE_CHUNK = DECODE_CHUNK
+        graphs.clear(model)
+    for (chunk, force), w in sorted(sweep.items(), key=lambda kv: (
+            kv[0][1] or 0, kv[0][0])):
+        print(f"graphs chunk sweep: DECODE_CHUNK {chunk}, "
+              f"{'7 steps' if force is None else f'{force} steps'}: decode "
+              f"ms median {np.median(w):.3f}, mean {np.mean(w):.3f} of "
+              f"{[round(t, 3) for t in w]} ({card})", flush=True)
+
+    # a decode step's ms, eager and captured: (decode at 17 tokens - at 1)
+    # / the bodies between them
+    step_ms = {}
+    for route, fn in (
+            ("eager", lambda f: decode_chunked(model, *inputs,
+                                               force_length=f)),
+            ("captured", lambda f: graphs.decode(model, *inputs,
+                                                 force_length=f))):
+        for f in (1, 17):
+            fn(f)
+        t1 = min(_walls(torch, lambda: fn(1)))
+        t17 = min(_walls(torch, lambda: fn(17)))
+        step_ms[route] = (t17 - t1) / (_bodies(17) - _bodies(1))
+    print(f"graphs decode step ms (batch 8, flagship): eager "
+          f"{step_ms['eager']:.3f}, captured {step_ms['captured']:.3f} "
+          f"({card})", flush=True)
+    return reads
+
+
+def _graph_requests(torch, np, model, card):
+    """A flagship request of 8 images, eager against captured: latency,
+    device busy and idle share (profiled), peak memory; the profiler's
+    count of the gather kernel in a replayed request against the
+    counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cape_tpu_torch import CAPEPredictor, serve
+    from cape_tpu_torch.models.cape import autoregressive_decode
+
+    pred = CAPEPredictor(model.cfg, model, batch_size=8)
+    proto = np.asarray(PROTO_17, np.float32)
+    imgs, boxes = _requests(np, 1, 8)[0]
+    kw = dict(bboxes=boxes, skeleton=SKELETON_17)
+    captured = serve.decode
+
+    def eager(m, images, sc, sm, se, max_len=None):
+        return autoregressive_decode(m, images, sc, sm, se, max_len=max_len)
+
+    res = {}
+    for route in ("eager", "captured", "captured", "eager"):
+        serve.decode = eager if route == "eager" else captured
+        try:
+            pred.predict(imgs, proto, **kw)                       # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            walls = _walls(torch, lambda: pred.predict(imgs, proto, **kw))
+            peak = torch.cuda.max_memory_allocated() - base
+            _reset_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                pred.predict(imgs, proto, **kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            counts = _counts()
+        finally:
+            serve.decode = captured
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _busy_ms(kernels)
+        traced = sum("quad_gather_kernel" in e.name for e in kernels)
+        check(traced == counts["quad_gather"],
+              f"{route} request: the profiler saw {traced} gather kernels, "
+              f"the counter {counts['quad_gather']}")
+        r = res.setdefault(route, {"walls": [], "peaks": [], "idle": []})
+        r["walls"] += walls
+        r["peaks"].append(peak)
+        r["idle"].append(100 * (1 - busy / wall))
+        print(f"graphs request {route}: ms {[round(t, 3) for t in walls]}; "
+              f"profiled wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle {100 * (1 - busy / wall):.2f}%, {len(kernels)} device "
+              f"events, {traced} gather kernels traced = the counter; peak "
+              f"memory {peak} bytes above what was allocated before, "
+              f"{base} ({card})", flush=True)
+    return res
+
+
+def _graph_train(torch, np, card, only=None):
+    """The flagship micro-step captured against eager: two real updates
+    (8 micro-steps of 4 images) at dropout 0, masters bit-equal under
+    `fused` and within RESUME_AUTO_TOL under `auto`; the same at dropout
+    0.1 under `fused` (do the masks match?); a `steps_per_dispatch` group
+    of 4 with no host sync; ms per micro-step and update, peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cape_tpu_torch import CAPE, CAPEConfig, graphs
+    from cape_tpu_torch.train import (create_train_state,
+                                      make_scan_train_step, make_train_step)
+    from cape_tpu_torch.train.train_step import _to_device, micro_step
+
+    base = CAPEConfig()
+    spe = base.episodes_per_epoch // base.batch_size
+    rng = np.random.default_rng(11)
+    host = [_train_batch(np, base, rng) for _ in range(8)]
+    batches = [_to_device(b, torch.device("cuda")) for b in host]
+    k = base.accumulation_steps
+
+    def run(cfg, route, env):
+        model = CAPE(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, model, spe)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        step = make_train_step(model, cfg, spe)
+        ms, metrics = [], []
+        with selection(**env):
+            check((graphs.step_route(model, cfg) is None),
+                  f"the flagship step is not captured: "
+                  f"{graphs.step_route(model, cfg)}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+
+            def one(b):
+                nonlocal state
+                if route == "captured":
+                    state, m = step(state, b, gen)
+                    return m
+                emit = state.tx.prepare(state.opt_state)
+                m = micro_step(model, cfg, state, b, gen, emit)
+                state.step += 1
+                return m
+
+            for i, b in enumerate(batches):
+                t0 = time.perf_counter()
+                _reset_counts()
+                m = one(b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({n: v.item() for n, v in m.items()})
+                c = _counts()
+                check(sum(c.values()) > 0, f"{route}: micro-step {i + 1} "
+                      "counted no kernel launch")
+            peak = torch.cuda.max_memory_allocated()
+            masters = [t.clone() for t in state.opt_state.masters]
+            check(state.opt_state.gradient_step == 8 // k, "gradient steps")
+            # one more update cycle under the profiler, no sync between its
+            # micro-steps: device busy, events and idle share
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in batches[:k]:
+                    one(b)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        cycle = (wall, _busy_ms(kernels), len(kernels))
+        if route == "captured":
+            check(len(graphs.programs(model)) == 1,
+                  "the flagship micro-step took no captured route")
+        held = _held_by_programs(torch, graphs, model)
+        del model, state, step
+        return masters, metrics, ms, peak - mem0, c, cycle, held
+
+    out = {}
+    for label, cfg, env in (
+            ("fused, dropout 0", base.replace(dropout=0.0),
+             dict(CAPE_MSDA_GATHER="fused")),
+            ("auto, dropout 0", base.replace(dropout=0.0), {}),
+            ("fused, dropout 0.1", base, dict(CAPE_MSDA_GATHER="fused")),
+            ("auto, dropout 0.1", base, {})):
+        if only is not None and label not in only:
+            continue
+        runs = {r: run(cfg, r, env) for r in ("eager", "captured")}
+        (me, xe, te, pe, ce, ye, _), (mc, xc, tc, pc, cc, yc, hc) = (
+            runs["eager"], runs["captured"])
+        diff = max(float((a - b).abs().max()) for a, b in zip(me, mc))
+        same = all(torch.equal(a, b) for a, b in zip(me, mc))
+        same_losses = [a["total"] == b["total"] for a, b in zip(xe, xc)]
+        print(f"graphs train {label}: masters after 2 updates "
+              f"{'bit-equal' if same else f'differ by at most {diff:.3e}'}; "
+              f"losses equal per micro-step {same_losses}; launches a "
+              f"micro-step {cc} (eager {ce})", flush=True)
+        for route, t, p, y in (("eager", te, pe, ye),
+                               ("captured", tc, pc, yc)):
+            ups = [sum(t[i:i + k]) for i in range(0, len(t), k)]
+            print(f"  {route}: ms per micro-step {[round(x, 3) for x in t]}, "
+                  f"per update {[round(x, 3) for x in ups]}, peak memory "
+                  f"{p} bytes above what was allocated before; a profiled "
+                  f"update cycle: wall {y[0]:.3f} ms, device busy "
+                  f"{y[1]:.3f} ms, {y[2]} device events, idle "
+                  f"{100 * (1 - y[1] / y[0]):.2f}% ({card})", flush=True)
+        print(f"  the captured step's programs held {hc[0]} bytes allocated "
+              f"and {hc[1]} reserved ({card})", flush=True)
+        check(cc == ce, f"{label}: captured launches {cc}, eager {ce}")
+        if label == "fused, dropout 0":
+            check(same, f"{label}: captured masters differ by {diff:.3e}")
+        if label == "auto, dropout 0":
+            check(diff <= RESUME_AUTO_TOL, f"{label}: captured masters differ "
+                  f"by {diff:.3e} > {RESUME_AUTO_TOL:.3e}")
+        out[label] = (same, diff)
+
+    # steps_per_dispatch: one group of 4 micro-steps replayed with no host
+    # sync (after its capture), against single captured steps
+    cfg = base.replace(dropout=0.0)
+    with selection(CAPE_MSDA_GATHER="fused"):
+        model = CAPE(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, model, spe)
+        scan = make_scan_train_step(model, cfg, spe)
+        stacked = [{kk: (torch.stack([b[kk] for b in group])
+                         if kk != "targets" else
+                         {t: torch.stack([b[kk][t] for b in group])
+                          for t in group[0][kk]})
+                    for kk in group[0]}
+                   for group in (batches[:4], batches[4:])]
+        state, m1 = scan(state, stacked[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m2), syncs = _sync_reads(torch, lambda: scan(state,
+                                                             stacked[1]))
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(not syncs, f"a steps_per_dispatch group synchronised at "
+              f"{syncs}")
+        check(m2["total"].shape == (4,), f"group metrics {m2['total'].shape}")
+        masters = [t.clone() for t in state.opt_state.masters]
+        graphs.clear(model)
+        del model, state, scan
+    me = run(base.replace(dropout=0.0), "captured",
+             dict(CAPE_MSDA_GATHER="fused"))[0]
+    check(all(torch.equal(a, b) for a, b in zip(masters, me)),
+          "the steps_per_dispatch groups' masters are not the single "
+          "captured steps'")
+    print(f"graphs steps_per_dispatch 4 (fused, dropout 0): 0 host syncs in "
+          f"a group, enqueued in {enqueue:.3f} ms, done in {wall:.3f} ms; "
+          f"masters bit-equal to 8 single captured steps ({card})",
+          flush=True)
+    return out
+
+
+def phase_graphs(torch, np, card, model):
+    """Compile once, replay many: the decode and the micro-step as
+    replays of captured CUDA graphs (`cape_tpu_torch.graphs`) against the
+    same bodies run eagerly."""
+    from cape_tpu_torch import CAPE, graphs
+
+    t0 = time.perf_counter()
+    model_p = CAPE(model.cfg.replace(use_pallas_msda=True), device="cuda",
+                   generator=torch.Generator().manual_seed(1))
+    model_p.load_state_dict(model.state_dict())
+    reads = _graph_decodes(torch, np, model, model_p, card)
+    del model_p
+    requests = _graph_requests(torch, np, model, card)
+    n = len(graphs.programs(model))
+    held = _held_by_programs(torch, graphs, model)
+    print(f"graphs memory: the flagship model's {n} decode program(s) "
+          f"(batch 8) held {held[0]} bytes allocated and {held[1]} reserved "
+          f"({card})", flush=True)
+    train = _graph_train(torch, np, card)
+    print(f"phase_graphs: {time.perf_counter() - t0:.3f} s", flush=True)
+    return reads, requests, train
 
 
 # ----------------------------------------------------------------------
@@ -1223,14 +1664,16 @@ def _same_bytes(a, b):
 
 
 @contextlib.contextmanager
-def _recorded_decode(torch, trained_length=False):
+def _recorded_decode(torch, trained_length=False, eager=False):
     """Record each decode `evaluate_cape` runs: its synchronised ms, its
     decode steps (the longest sample's length) and its outputs.
 
     `trained_length=True` runs every decode for the steps a trained model
     takes on the batch: its largest keypoint count + 1 (EOS), through
-    `autoregressive_decode`'s `force_length` (random weights emit EOS at
-    `min_decode_len`)."""
+    `force_length` (random weights emit EOS at `min_decode_len`).
+    `eager=True` runs the decode's bodies eagerly
+    (`autoregressive_decode`) where `evaluate_cape` replays them."""
+    from cape_tpu_torch import graphs
     from cape_tpu_torch.eval import evaluate
     from cape_tpu_torch.models.cape import autoregressive_decode
 
@@ -1240,9 +1683,14 @@ def _recorded_decode(torch, trained_length=False):
         force = int((~torch.as_tensor(sm)).sum(1).max()) + 1 \
             if trained_length else None
         t0 = time.perf_counter()
-        out = autoregressive_decode(model, images, sc, sm, se,
-                                    force_length=force, max_len=max_len) \
-            if trained_length else orig(model, images, sc, sm, se, max_len)
+        if eager:
+            out = autoregressive_decode(model, images, sc, sm, se,
+                                        force_length=force, max_len=max_len)
+        elif trained_length:
+            out = graphs.decode(model, images, sc, sm, se, max_len=max_len,
+                                force_length=force)
+        else:
+            out = orig(model, images, sc, sm, se, max_len)
         if out["lengths"].is_cuda:
             torch.cuda.synchronize()
         calls.append({"ms": (time.perf_counter() - t0) * 1e3,
@@ -1336,7 +1784,7 @@ def _image_routes(np, ev):
 
 
 def _eval_run(torch, np, model, ev, n, eb, visible, label,
-              trained_length=False, **env):
+              trained_length=False, eager=False, **env):
     """`evaluate_cape` over the real pipeline (a cold dataset, one loader
     thread, `prefetch` with `to_device`) on the first `n` fixed episodes
     in batches of `eb`, under the auto cap; checks the episode and visible
@@ -1349,7 +1797,8 @@ def _eval_run(torch, np, model, ev, n, eb, visible, label,
 
     log = []
     ds = ev.dataset()
-    with selection(**env), _recorded_decode(torch, trained_length) as calls:
+    with selection(**env), _recorded_decode(torch, trained_length,
+                                            eager) as calls:
         _reset_counts()
         t0 = time.perf_counter()
         stats = evaluate_cape(
@@ -1452,7 +1901,8 @@ def phase_eval(torch, np, model, card, root):
     first = run("eval, default path")
     stats, counts, steps = first.stats, first.counts, first.steps
     _check_counts(counts, "the eval's default path",
-                  quad_gather=sum(enc + cfg.dec_layers * s for s in steps))
+                  quad_gather=sum(enc + cfg.dec_layers * _bodies(s, ev.cap)
+                                  for s in steps))
     again = run("eval, default path again").stats
     check(again == stats, f"a second eval gave other stats: {again} "
           f"against {stats}")
@@ -1460,7 +1910,7 @@ def phase_eval(torch, np, model, card, root):
             CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")
     fused, fcounts, fsteps = r.stats, r.counts, r.steps
     _check_counts(fcounts, "the fused eval", fused_fwd=sum(
-        enc + cfg.dec_layers * L * s for s in fsteps))
+        enc + cfg.dec_layers * L * _bodies(s, ev.cap) for s in fsteps))
     print(f"eval PCK@0.2: default path {stats['pck']:.6f}, fused "
           f"{fused['pck']:.6f} ({card})", flush=True)
     return ev, first, counts, fcounts
@@ -1508,16 +1958,26 @@ def phase_eval_sized(torch, np, model, card, root):
           f"{build_ms[4]:.3f}; {visible} visible GT keypoints", flush=True)
 
     enc = cfg.enc_layers * cfg.num_feature_levels
-    for label, forced in (("sized eval, random weights' decode length",
-                           False),
-                          ("sized eval, trained decode length", True)):
-        r = _eval_run(torch, np, model, ev, n, eb, visible, label,
-                      trained_length=forced)
+    runs = {}
+    for label, forced, eager in (
+            ("sized eval, random weights' decode length", False, False),
+            ("sized eval, trained decode length", True, False),
+            ("sized eval, trained decode length, eager decode", True, True)):
+        r = runs[label] = _eval_run(torch, np, model, ev, n, eb, visible,
+                                    label, trained_length=forced,
+                                    eager=eager)
         _check_counts(r.counts, label, quad_gather=sum(
-            enc + cfg.dec_layers * s for s in r.steps))
+            enc + cfg.dec_layers * _bodies(s, ev.cap) for s in r.steps))
         if forced:
             check(r.steps == trained, f"{label}: decode steps {r.steps}, "
                   f"a trained model's {trained}")
+        if eager:
+            # the replayed decodes give the eager bodies' outputs
+            captured = runs["sized eval, trained decode length"]
+            check(r.stats == captured.stats and all(
+                torch.equal(a[k], b[k]) for a, b in zip(r.outs, captured.outs)
+                for k in a), f"{label}: the captured decodes' outputs or "
+                "stats differ from the eager ones'")
         share = {k: 100 * sum(getattr(r, k)) / r.wall
                  for k in ("wait", "decode", "score")}
         rest = r.decode[1:]
@@ -1529,7 +1989,8 @@ def phase_eval_sized(torch, np, model, card, root):
               f"{sum(r.wait[1:]):.3f} in all (at most "
               f"{max(r.wait[1:]):.3f}), decode {np.mean(rest):.3f} a batch "
               f"({min(rest):.3f}-{max(rest):.3f}), "
-              f"{sum(rest) / sum(r.steps[1:]):.3f} a decode step with "
+              f"{sum(rest) / sum(_bodies(s, ev.cap) for s in r.steps[1:]):.3f}"
+              f" a token body with "
               f"the batch's encoder spread over its steps, scoring "
               f"{np.mean(r.score[1:]):.3f} a batch; shares of the wall: "
               f"waiting {share['wait']:.2f}%, decode {share['decode']:.2f}%, "
@@ -1619,6 +2080,7 @@ def _train_run(torch, flags):
     with _recorded_decode(torch) as decodes, patched:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        rec.base = torch.cuda.memory_allocated()
         _reset_counts()
         t0 = time.perf_counter()
         res = cli_train.main(flags)
@@ -1725,7 +2187,8 @@ def phase_train_loop(torch, np, card, root):
     tv = _torchvision_resnet50(np, 0)
     np.savez(npz, **tv)
     out = {n: os.path.join(root, f"loop_{n}")
-           for n in ("auto", "auto_resumed", "fused", "fused_resumed")}
+           for n in ("auto", "auto_resumed", "auto_eager", "fused",
+                     "fused_resumed")}
     common = ["--dataset_root", root, "--category_split_file", split_file,
               "--resnet_weights", npz, *TRAIN_LOOP_FLAGS]
 
@@ -1770,7 +2233,7 @@ def phase_train_loop(torch, np, card, root):
     L = cfg.num_feature_levels
     per_micro = (cfg.enc_layers + cfg.dec_layers) * L
     enc = cfg.enc_layers * L
-    val_gathers = sum(enc + cfg.dec_layers * s for s in a.steps) \
+    val_gathers = sum(enc + cfg.dec_layers * _bodies(s) for s in a.steps) \
         + len(a.steps) * per_micro
     _check_counts(a.counts, "the training run (auto)",
                   quad_gather=n_epochs * micro * per_micro + val_gathers,
@@ -1807,6 +2270,31 @@ def phase_train_loop(torch, np, card, root):
           f"({hist[-1]['pck_num_correct']}/{hist[-1]['pck_num_visible']}); "
           f"device memory before each micro-step {a.mem[::micro]} bytes "
           f"(epoch starts); peak {a.peak} bytes ({card})", flush=True)
+
+    # -- the same run with the micro-step eager (the route patched): ms per
+    # real update inside the loop, captured against eager
+    from unittest import mock
+
+    from cape_tpu_torch import graphs
+
+    with mock.patch.object(graphs, "step_route",
+                           lambda model, cfg: "patched for a comparison"):
+        e = _train_run(torch, common + ["--output_dir", out["auto_eager"]])
+    check(e.episodes == a.episodes, "the eager run trained on other episodes")
+    eager_diff = max(_master_diffs(ck, *(os.path.join(out[n], "epoch_1")
+                                         for n in ("auto", "auto_eager")))
+                     [0].values())
+    shutil.rmtree(out["auto_eager"])
+    e_updates = [sum(e.ms[i:i + k]) for i in range(0, len(e.ms), k)]
+    print(f"train loop, micro-step eager: ms per real update "
+          f"{[round(t, 3) for t in e_updates]} (captured above "
+          f"{[round(t, 3) for t in updates]}); epochs' train wall "
+          f"{[round(h['train_s'] * 1e3, 3) for h in e.res['history']]} ms; "
+          f"peak {e.peak} bytes (captured {a.peak}); masters after 2 "
+          f"epochs differ from the captured run's by at most "
+          f"{eager_diff:.3e} (`quad_scatter`'s order); allocated before "
+          f"each run: eager {e.base}, captured {a.base} bytes ({card})",
+          flush=True)
 
     # -- augmented batch builds, cold, 1 and 4 loader threads: byte-equal
     built, build_ms = {}, {}
@@ -1870,7 +2358,7 @@ def phase_train_loop(torch, np, card, root):
         del fr.res["state"]
     for run, epochs, label in ((f, n_epochs, "fused"),
                                (fr, 1, "fused, resumed")):
-        fwd = sum(enc + cfg.dec_layers * L * s for s in run.steps) \
+        fwd = sum(enc + cfg.dec_layers * L * _bodies(s) for s in run.steps) \
             + len(run.steps) * per_micro
         _check_counts(run.counts, f"the training run ({label})",
                       fused_fwd=epochs * micro * per_micro + fwd,
@@ -2070,6 +2558,7 @@ def phase_training(torch, np, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     times = []
     for i, batch in enumerate(batches):
         before_p = [t.detach().clone() for t in params]
@@ -2121,7 +2610,8 @@ def phase_training(torch, np, card):
           f"{n_params} parameters): ms per micro-step "
           f"{[round(t, 3) for t in times]} (those ending an accumulation "
           f"include the optimizer: {[round(t, 3) for t in updates]}); peak "
-          f"memory {peak} bytes ({card})", flush=True)
+          f"memory {peak} bytes, {base} allocated before the first "
+          f"({card})", flush=True)
 
     # -- the split: forward, backward and a real optimizer update, timed
     # apart with a sync between them on the same batches
@@ -2774,7 +3264,7 @@ def phase_variants(torch, np, card, root):
         _check_results(np, res, len(imgs), len(PROTO_17))
         steps = max(r["length"] for r in res)
         _check_counts(counts, f"the {name} request",
-                      quad_gather=enc + base.dec_layers * steps)
+                      quad_gather=enc + base.dec_layers * _bodies(steps))
         add(counts)
         print(f"  {name}: a request of 8 (warm) {ms:.3f} ms, {steps} decode "
               f"steps, launches {counts} ({card})", flush=True)
@@ -2871,7 +3361,7 @@ def phase_variants(torch, np, card, root):
     _check_results(np, res, len(imgs), len(PROTO_17))
     steps = max(r["length"] for r in res)
     _check_counts(counts, "the imported checkpoint's request",
-                  quad_gather=enc + base.dec_layers * steps)
+                  quad_gather=enc + base.dec_layers * _bodies(steps))
     add(counts)
     want = in_memory.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
     same = all(np.array_equal(a["keypoints"], b["keypoints"])
@@ -3505,6 +3995,7 @@ def main() -> int:
         kernels = phase_kernels(torch, card)
         model, default_counts, pallas_counts, fused_counts = phase_serving(
             torch, np, card)
+        phase_graphs(torch, np, card, model)
         ev, eval_run, eval_counts, eval_fused_counts = phase_eval(
             torch, np, model, card, tree.name)
         sized = os.path.join(tree.name, "sized")
