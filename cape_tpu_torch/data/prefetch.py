@@ -11,6 +11,10 @@ the kernels the consumer has launched, which is correct but serial.
 Pinned memory with `non_blocking=True` on a stream of its own would also
 need a CUDA event that the consumer waits on before it reads the batch;
 that is left for a performance change.
+
+Spans (`trace`): `prefetch.build` (the producer's `next(iterable)`),
+`prefetch.copy` (its `transform`) and `prefetch.wait` (the consumer
+blocked on the queue).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Iterable, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 
 
@@ -75,9 +80,15 @@ def prefetch(iterable: Iterable, buffer_size: int = 2,
 
     def producer():
         try:
-            for item in iterable:
+            items = iter(iterable)
+            while True:
+                with trace.span("prefetch.build"):
+                    item = next(items, sentinel)
+                if item is sentinel:
+                    break
                 if transform is not None:
-                    item = transform(item)
+                    with trace.span("prefetch.copy"):
+                        item = transform(item)
                 q.put(item)
         except BaseException as e:  # propagate to consumer
             error.append(e)
@@ -87,7 +98,8 @@ def prefetch(iterable: Iterable, buffer_size: int = 2,
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with trace.span("prefetch.wait"):
+            item = q.get()
         if item is sentinel:
             if error:
                 raise error[0]

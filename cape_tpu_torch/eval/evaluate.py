@@ -34,7 +34,7 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..config import CAPEConfig
 from ..data.token_types import TokenType
 from ..models.cape import CAPE, autoregressive_decode
@@ -107,6 +107,94 @@ def decode(model: CAPE, images, sc, sm, se,
     return autoregressive_decode(model, images, sc, sm, se, max_len=max_len)
 
 
+def _score(evaluator: PCKEvaluator, cfg: CAPEConfig, out: Dict,
+           meta: Dict, pck_norm: str, gt_structure_fallback: bool,
+           decode_max_len: Optional[int]) -> np.ndarray:
+    """One batch's host scoring: the decode's keypoints extracted and
+    added to `evaluator` against the ground truth. Returns the batch's
+    `sample_valid` rows."""
+    pred_logits = out["pred_logits"].astype(np.float32)
+    pred_coords = out["pred_coords"].astype(np.float32)
+    valid = meta.get("sample_valid",
+                     np.ones(pred_logits.shape[0], bool))
+    # incomplete-generation warning (`roomformer_v2.py:608-621`,
+    # WARN_INCOMPLETE_GENERATION env toggle)
+    n_unfinished = int((out["unfinished"] & valid).sum())
+    if n_unfinished and os.environ.get("WARN_INCOMPLETE_GENERATION", "1") == "1":
+        warnings.warn(
+            f"{n_unfinished} sequence(s) hit "
+            f"max_len={decode_max_len or cfg.seq_len} "
+            f"without predicting EOS — the model may not have learned "
+            f"stopping behavior (check EOS weighting/training length).",
+            RuntimeWarning,
+        )
+    # active mask: positions before each sample's EOS
+    lengths = out["lengths"]
+    active = np.arange(pred_logits.shape[1])[None, :] < lengths[:, None]
+
+    if debug_enabled("DEBUG_KEYPOINT_BUG"):
+        # per-step token-type trace of the first real sample, mirroring
+        # the reference's generation-loop diagnostic
+        # (`roomformer_v2.py:474-528`, first 10 steps)
+        i0 = int(np.argmax(valid))
+        names = {0: "COORD", 1: "SEP", 2: "EOS"}
+        print(f"[DEBUG_KEYPOINT_BUG] sample {i0}: generated "
+              f"{int(lengths[i0])} tokens (max {cfg.seq_len})",
+              flush=True)
+        for step in range(min(10, int(lengths[i0]))):
+            t = int(pred_logits[i0, step].argmax())
+            print(f"  step {step}: {names.get(t, t)} "
+                  f"coords={pred_coords[i0, step].round(4).tolist()}",
+                  flush=True)
+
+    expected = meta["num_keypoints"]
+    if gt_structure_fallback:
+        # predicted coords at GT coord positions (the first N steps —
+        # GT labels are [coord]*N + eos): token-type mistakes don't
+        # shift the extraction (`engine_cape.py:1015-1022`)
+        preds = [pred_coords[i, : int(expected[i])]
+                 for i in range(pred_coords.shape[0])]
+    else:
+        preds = extract_pred_keypoints(pred_logits, pred_coords, active,
+                                       expected)
+    gts = extract_gt_keypoints(meta["targets"], expected)
+
+    bbox = meta["bbox_dims"]
+    vis = meta["gt_visibility"]
+    cids = meta["category_ids"]
+    for i in range(len(preds)):
+        if not valid[i]:  # static-batch padding episode
+            continue
+        n = int(expected[i])
+        # reference env-toggle diagnostics (engine_cape.py:40 family)
+        if debug_enabled("DEBUG_KEYPOINT_COUNT"):
+            print(f"[DEBUG_KEYPOINT_COUNT] cat {int(cids[i])}: "
+                  f"generated {int(lengths[i])} tokens vs expected "
+                  f"{n} coords + EOS", flush=True)
+        if debug_enabled("DEBUG_EXTRACT"):
+            n_coord = int(((pred_logits[i].argmax(-1) == TokenType.coord)
+                           & active[i]).sum())
+            print(f"[DEBUG_EXTRACT] sample {i}: {n_coord} coord tokens "
+                  f"-> {'trim' if n_coord > n else 'pad'} to {n}",
+                  flush=True)
+        gt = gts[i]
+        if len(gt) < n:  # safety: pad GT like predictions
+            gt = np.concatenate([gt, np.zeros((n - len(gt), 2))], axis=0)
+        if pck_norm == "resized":
+            bw = bh = float(cfg.image_size)
+        else:
+            bw, bh = float(bbox[i, 0]), float(bbox[i, 1])
+        evaluator.add_sample(
+            preds[i] * cfg.image_size,
+            gt * cfg.image_size,
+            bbox_width=bw,
+            bbox_height=bh,
+            category_id=int(cids[i]),
+            visibility=vis[i, :n],
+        )
+    return valid
+
+
 def evaluate_cape(
     model: CAPE,
     batches: Iterable[Dict],
@@ -163,97 +251,24 @@ def evaluate_cape(
 
     n_batches = 0
     for batch in batches:
-        out = to_numpy(decode(
-            model, batch["query_images"], batch["support_coords"],
-            batch["support_mask"], batch["skeleton_edges"], decode_max_len))
-        meta = {k: batch[k] for k in _META_KEYS if k in batch}
-        if multihost:
-            out, meta = allgather_tree(out), allgather_tree(meta)
-        else:
-            meta = to_numpy(meta)
-        pred_logits = out["pred_logits"].astype(np.float32)
-        pred_coords = out["pred_coords"].astype(np.float32)
-        valid = meta.get("sample_valid",
-                         np.ones(pred_logits.shape[0], bool))
-        # incomplete-generation warning (`roomformer_v2.py:608-621`,
-        # WARN_INCOMPLETE_GENERATION env toggle)
-        n_unfinished = int((out["unfinished"] & valid).sum())
-        if n_unfinished and os.environ.get("WARN_INCOMPLETE_GENERATION", "1") == "1":
-            warnings.warn(
-                f"{n_unfinished} sequence(s) hit "
-                f"max_len={decode_max_len or cfg.seq_len} "
-                f"without predicting EOS — the model may not have learned "
-                f"stopping behavior (check EOS weighting/training length).",
-                RuntimeWarning,
-            )
-        # active mask: positions before each sample's EOS
-        lengths = out["lengths"]
-        active = np.arange(pred_logits.shape[1])[None, :] < lengths[:, None]
-
-        if debug_enabled("DEBUG_KEYPOINT_BUG"):
-            # per-step token-type trace of the first real sample, mirroring
-            # the reference's generation-loop diagnostic
-            # (`roomformer_v2.py:474-528`, first 10 steps)
-            i0 = int(np.argmax(valid))
-            names = {0: "COORD", 1: "SEP", 2: "EOS"}
-            print(f"[DEBUG_KEYPOINT_BUG] sample {i0}: generated "
-                  f"{int(lengths[i0])} tokens (max {cfg.seq_len})",
-                  flush=True)
-            for step in range(min(10, int(lengths[i0]))):
-                t = int(pred_logits[i0, step].argmax())
-                print(f"  step {step}: {names.get(t, t)} "
-                      f"coords={pred_coords[i0, step].round(4).tolist()}",
-                      flush=True)
-
-        expected = meta["num_keypoints"]
-        if gt_structure_fallback:
-            # predicted coords at GT coord positions (the first N steps —
-            # GT labels are [coord]*N + eos): token-type mistakes don't
-            # shift the extraction (`engine_cape.py:1015-1022`)
-            preds = [pred_coords[i, : int(expected[i])]
-                     for i in range(pred_coords.shape[0])]
-        else:
-            preds = extract_pred_keypoints(pred_logits, pred_coords, active,
-                                           expected)
-        gts = extract_gt_keypoints(meta["targets"], expected)
-
-        bbox = meta["bbox_dims"]
-        vis = meta["gt_visibility"]
-        cids = meta["category_ids"]
-        for i in range(len(preds)):
-            if not valid[i]:  # static-batch padding episode
-                continue
-            n = int(expected[i])
-            # reference env-toggle diagnostics (engine_cape.py:40 family)
-            if debug_enabled("DEBUG_KEYPOINT_COUNT"):
-                print(f"[DEBUG_KEYPOINT_COUNT] cat {int(cids[i])}: "
-                      f"generated {int(lengths[i])} tokens vs expected "
-                      f"{n} coords + EOS", flush=True)
-            if debug_enabled("DEBUG_EXTRACT"):
-                n_coord = int(((pred_logits[i].argmax(-1) == TokenType.coord)
-                               & active[i]).sum())
-                print(f"[DEBUG_EXTRACT] sample {i}: {n_coord} coord tokens "
-                      f"-> {'trim' if n_coord > n else 'pad'} to {n}",
-                      flush=True)
-            gt = gts[i]
-            if len(gt) < n:  # safety: pad GT like predictions
-                gt = np.concatenate([gt, np.zeros((n - len(gt), 2))], axis=0)
-            if pck_norm == "resized":
-                bw = bh = float(cfg.image_size)
-            else:
-                bw, bh = float(bbox[i, 0]), float(bbox[i, 1])
-            evaluator.add_sample(
-                preds[i] * cfg.image_size,
-                gt * cfg.image_size,
-                bbox_width=bw,
-                bbox_height=bh,
-                category_id=int(cids[i]),
-                visibility=vis[i, :n],
-            )
-
-        if compute_loss and eval_loss_fn is not None:
-            losses = eval_loss_fn(batch)
-            logger.update(**{k: float(v) for k, v in losses.items()})
+        with trace.span("eval.batch", root=True):
+            out = decode(
+                model, batch["query_images"], batch["support_coords"],
+                batch["support_mask"], batch["skeleton_edges"],
+                decode_max_len)
+            with trace.span("eval.fetch"):
+                out = to_numpy(out)
+                meta = {k: batch[k] for k in _META_KEYS if k in batch}
+                if multihost:
+                    out, meta = allgather_tree(out), allgather_tree(meta)
+                else:
+                    meta = to_numpy(meta)
+            with trace.span("eval.score"):
+                valid = _score(evaluator, cfg, out, meta, pck_norm,
+                               gt_structure_fallback, decode_max_len)
+            if compute_loss and eval_loss_fn is not None:
+                losses = eval_loss_fn(batch)
+                logger.update(**{k: float(v) for k, v in losses.items()})
         n_batches += 1
         if debug_enabled("DEBUG_EVAL") or debug_enabled("DEBUG_PCK"):
             r = evaluator.get_results()

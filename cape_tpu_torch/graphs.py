@@ -45,6 +45,12 @@ How the programs are kept right:
 - the kernels' launch counters (`ops.launch_counters`): warm-ups and
   captures count nothing (they are the program's set-up, as a trace is in
   JAX); each replay adds the launches its graph holds;
+- spans and counters (`trace`): a capture with its warm-up is the span
+  `graphs.capture` and counts one `graphs.captures`; the decode records
+  the spans and counters of the eager `models.cape.decode_chunked` under
+  the same names, a replay timed on the device as `decode.prologue` or
+  `decode.chunk`, and the micro-step's `step.*` spans its copy-in, replay
+  and copy-out;
 - captures run with `capture_error_mode="thread_local"`: the prefetch
   thread may copy the next batch to the card meanwhile.
 
@@ -69,6 +75,7 @@ from .models.cape import (CAPE, DECODE_CHUNK, decode_length, decode_outputs,
                           decode_pending, decode_prologue, decode_token)
 from .ops import launch_counters
 from .parallel import process_count
+from . import trace
 
 #: the variables that select an MSDA formulation, read while a body is
 #: captured, and so a part of every program's key
@@ -136,28 +143,35 @@ class _Graph:
     """One captured graph and the kernel launches it holds."""
 
     def __init__(self, mg: _ModelGraphs, fn: Callable,
-                 generator: Optional[torch.Generator] = None):
-        """Capture `fn` on the model's side stream into the model's pool;
-        `self.out` is what the captured call returned."""
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        # a graph destroyed while another captures invalidates the capture:
-        # collect cyclic garbage first, and let no collection run inside
-        gc.collect()
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with _uncounted():
-                before = _counts()
-                with torch.cuda.graph(self.graph, pool=mg.pool,
-                                      stream=mg.stream,
-                                      capture_error_mode="thread_local"):
-                    self.out = fn()
-                after = _counts()
-        finally:
-            if enabled:
-                gc.enable()
+                 generator: Optional[torch.Generator] = None,
+                 warm: Optional[Callable] = None):
+        """Capture `fn` on the model's side stream into the model's pool,
+        after `warm` (a warm-up of the same work) where given; `self.out`
+        is what the captured call returned."""
+        with trace.span("graphs.capture"):
+            if warm is not None:
+                _warm_up(mg, warm)
+            self.graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            # a graph destroyed while another captures invalidates the
+            # capture: collect cyclic garbage first, and let no collection
+            # run inside
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with _uncounted():
+                    before = _counts()
+                    with torch.cuda.graph(self.graph, pool=mg.pool,
+                                          stream=mg.stream,
+                                          capture_error_mode="thread_local"):
+                        self.out = fn()
+                    after = _counts()
+            finally:
+                if enabled:
+                    gc.enable()
+        trace.count("graphs.captures")
         self.launches = [(*launch_counters()[k], after[k] - before[k])
                          for k in after if after[k] != before[k]]
 
@@ -216,6 +230,7 @@ class _DecodeProgram:
     def __init__(self, model: CAPE, mg: _ModelGraphs, inputs, length: int,
                  forced: bool):
         self.seq_len = model.cfg.seq_len
+        self.device = model.device
         self.inputs = tuple(torch.empty_like(t) for t in inputs)
         for s, t in zip(self.inputs, inputs):
             s.copy_(t)
@@ -231,32 +246,42 @@ class _DecodeProgram:
                 decode_token(model, carry, self.force)
             return decode_pending(carry)
 
-        _warm_up(mg, lambda: tokens(prologue(), 1))
-        self.prologue = _Graph(mg, prologue)
+        self.prologue = _Graph(mg, prologue,
+                               warm=lambda: tokens(prologue(), 1))
         self.carry = self.prologue.out
         full, tail = divmod(length, DECODE_CHUNK)
         chunk = _Graph(mg, lambda: tokens(self.carry, DECODE_CHUNK)) \
             if full else None
-        self.chunks = [chunk] * full
+        # (graph, token bodies it runs)
+        self.chunks = [(chunk, DECODE_CHUNK)] * full
         if tail:
-            self.chunks.append(_Graph(mg, lambda: tokens(self.carry, tail)))
+            self.chunks.append(
+                (_Graph(mg, lambda: tokens(self.carry, tail)), tail))
 
     def __call__(self, inputs, force_length: Optional[int]
                  ) -> Dict[str, torch.Tensor]:
-        for s, t in zip(self.inputs, inputs):
-            s.copy_(t)
-        if self.force is not None:
-            self.force.fill_(force_length)
-        self.prologue.replay()
+        dev = self.device
+        with trace.device_span("decode.inputs", dev):
+            for s, t in zip(self.inputs, inputs):
+                s.copy_(t)
+            if self.force is not None:
+                self.force.fill_(force_length)
+        with trace.device_span("decode.prologue", dev):
+            self.prologue.replay()
         last = len(self.chunks) - 1
-        for i, chunk in enumerate(self.chunks):
-            chunk.replay()
+        for i, (chunk, n) in enumerate(self.chunks):
+            with trace.device_span("decode.chunk", dev):
+                chunk.replay()
+            trace.count("decode.steps", n)
             if i == last:
                 break
-            decode.host_reads += 1
-            if not bool(chunk.out):
+            trace.count("decode.host_reads")
+            with trace.span("decode.host_read"):
+                pending = bool(chunk.out)
+            if not pending:
                 break
-        return decode_outputs(self.carry, self.seq_len)
+        with trace.device_span("decode.outputs", dev):
+            return decode_outputs(self.carry, self.seq_len)
 
 
 @torch.inference_mode()
@@ -265,26 +290,27 @@ def decode(model: CAPE, images, support_coords, support_mask,
            force_length: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """`models.cape.autoregressive_decode` on a CUDA model, as replays of
     the captured program of its key (captured at the key's first call).
-    The outputs are the eager decode's, bit for bit. `decode.host_reads`
-    counts the reads of "has every sample finished?"."""
+    The outputs are the eager decode's, bit for bit. The counter
+    `decode.host_reads` (`trace`) counts the reads of "has every sample
+    finished?"."""
     dev = model.device
     if dev.type != "cuda":
         raise ValueError(f"graphs.decode needs a CUDA model, not {dev}")
-    inputs = tuple(torch.as_tensor(x, device=dev) for x in
-                   (images, support_coords, support_mask, skeleton_edges))
-    length = decode_length(model.cfg, max_len)
-    mg = _graphs_of(model)
-    forced = force_length is not None
-    key = ("decode", tuple(_signature(t) for t in inputs), length, forced,
-           _selection())
-    program = mg.programs.get(key)
-    if program is None:
-        program = mg.programs[key] = _DecodeProgram(model, mg, inputs,
-                                                    length, forced)
-    return program(inputs, force_length)
-
-
-decode.host_reads = 0
+    with trace.span("decode"):
+        with trace.device_span("decode.inputs", dev):
+            inputs = tuple(torch.as_tensor(x, device=dev) for x in
+                           (images, support_coords, support_mask,
+                            skeleton_edges))
+        length = decode_length(model.cfg, max_len)
+        mg = _graphs_of(model)
+        forced = force_length is not None
+        key = ("decode", tuple(_signature(t) for t in inputs), length,
+               forced, _selection())
+        program = mg.programs.get(key)
+        if program is None:
+            program = mg.programs[key] = _DecodeProgram(model, mg, inputs,
+                                                        length, forced)
+        return program(inputs, force_length)
 
 
 # -- the train step --------------------------------------------------------
@@ -334,16 +360,14 @@ class _StepProgram:
         vector, which its next replay overwrites."""
         from .train.train_step import losses_and_grads, micro_step
 
-        _copy_into(self.static, batch)
+        with trace.span("step.copy_in"):
+            _copy_into(self.static, batch)
         if emit not in self.graphs:
             gen = self.generator
             # the warm-up draws from a generator of its own: the step's
             # stream of dropout masks stays the eager one's
             warm_gen = (None if gen is None else
                         torch.Generator(device=model.device).manual_seed(0))
-            mg = _graphs_of(model)
-            _warm_up(mg, lambda: losses_and_grads(model, cfg, self.static,
-                                                  warm_gen))
             keys = []
 
             def body():
@@ -351,10 +375,13 @@ class _StepProgram:
                 keys.extend(m)
                 return torch.stack([m[k].float() for k in keys])
 
-            graph = _Graph(mg, body, gen)
+            graph = _Graph(_graphs_of(model), body, gen,
+                           warm=lambda: losses_and_grads(
+                               model, cfg, self.static, warm_gen))
             self.graphs[emit] = (graph, tuple(keys))
         graph, keys = self.graphs[emit]
-        graph.replay()
+        with trace.device_span("step.replay", model.device):
+            graph.replay()
         return keys, graph.out
 
 

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from .. import trace
 from ..config import CAPEConfig
 from ..data.mp100 import IMAGENET_MEAN, IMAGENET_STD
 from ..data.token_types import TokenType
@@ -443,20 +444,33 @@ def decode_chunked(model: CAPE, images, support_coords, support_mask,
     """`autoregressive_decode` run eagerly as the captured decode runs it:
     the prologue, then chunks of `chunk` token bodies (the last one cut at
     the cap), with a host read of `decode_pending` between two chunks. The
-    result does not depend on `chunk`."""
+    result does not depend on `chunk`. Records the spans and counters of
+    `graphs.decode` (`trace`) under the same names."""
     dev = model.device
-    images, support_coords, support_mask, skeleton_edges = (
-        torch.as_tensor(x, device=dev) for x in
-        (images, support_coords, support_mask, skeleton_edges))
-    L = decode_length(model.cfg, max_len)
-    carry = decode_prologue(model, images, support_coords, support_mask,
-                            skeleton_edges, L)
-    for start in range(0, L, chunk):
-        for _ in range(min(chunk, L - start)):
-            decode_token(model, carry, force_length)
-        if start + chunk < L and not bool(decode_pending(carry)):
-            break
-    return decode_outputs(carry, model.cfg.seq_len)
+    with trace.span("decode"):
+        with trace.device_span("decode.inputs", dev):
+            images, support_coords, support_mask, skeleton_edges = (
+                torch.as_tensor(x, device=dev) for x in
+                (images, support_coords, support_mask, skeleton_edges))
+        L = decode_length(model.cfg, max_len)
+        with trace.device_span("decode.prologue", dev):
+            carry = decode_prologue(model, images, support_coords,
+                                    support_mask, skeleton_edges, L)
+        for start in range(0, L, chunk):
+            n = min(chunk, L - start)
+            with trace.device_span("decode.chunk", dev):
+                for _ in range(n):
+                    decode_token(model, carry, force_length)
+            trace.count("decode.steps", n)
+            if start + chunk >= L:
+                break
+            trace.count("decode.host_reads")
+            with trace.span("decode.host_read"):
+                pending = bool(decode_pending(carry))
+            if not pending:
+                break
+        with trace.device_span("decode.outputs", dev):
+            return decode_outputs(carry, model.cfg.seq_len)
 
 
 def autoregressive_decode(

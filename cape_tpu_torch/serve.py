@@ -14,6 +14,11 @@ prototype and returns pixel keypoints in the original image frame:
 - host postprocessing: trim to the category keypoint count, map back
   through resize + crop into original pixel coordinates.
 
+A request is the root span `serve.predict` (`trace`), with `serve.prepare`
+(one image's crop and resize), and per batch `serve.batch` (stack and
+pad), the decode's spans, `serve.fetch` (the host waits for the card's
+outputs) and `serve.extract` (keypoints and pixel mapping).
+
 `CAPEPredictor.from_checkpoint` loads a checkpoint the port's training
 loop wrote (`utils.checkpoint`: the config from `meta.json`, the fp32
 masters from `state.pt`); weights may also come from
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import trace
 from .config import CAPEConfig
 from .data.augment import resize_with_keypoints
 from .data.mp100 import clamp_bbox
@@ -78,14 +84,15 @@ class CAPEPredictor:
         img = np.asarray(image)
         if img.dtype != np.uint8:
             raise ValueError(f"expected uint8 RGB image, got {img.dtype}")
-        H, W = img.shape[:2]
-        if bbox is not None:
-            bx, by, bw, bh = clamp_bbox(bbox, W, H)
-            img = img[by: by + bh, bx: bx + bw]
-        else:
-            bx, by, bw, bh = 0, 0, W, H
-        S = self.cfg.image_size
-        resized, _ = resize_with_keypoints(img, np.zeros((0, 2)), S)
+        with trace.span("serve.prepare"):
+            H, W = img.shape[:2]
+            if bbox is not None:
+                bx, by, bw, bh = clamp_bbox(bbox, W, H)
+                img = img[by: by + bh, bx: bx + bw]
+            else:
+                bx, by, bw, bh = 0, 0, W, H
+            S = self.cfg.image_size
+            resized, _ = resize_with_keypoints(img, np.zeros((0, 2)), S)
         # ship uint8; the model normalizes on device
         # inverse map: model [0,1] coords -> original pixels
         return {
@@ -118,6 +125,12 @@ class CAPEPredictor:
             frame, generated (N,) bool — False rows are zero-padded because
             the model stopped early, length int).
         """
+        with trace.span("serve.predict", root=True):
+            return self._predict(images, support_coords, skeleton,
+                                 support_visibility, bboxes)
+
+    def _predict(self, images, support_coords, skeleton, support_visibility,
+                 bboxes) -> List[Dict]:
         cfg = self.cfg
         sc = np.asarray(support_coords, np.float32)
         if sc.ndim == 2:
@@ -167,34 +180,37 @@ class CAPEPredictor:
         mask_b = np.ascontiguousarray(np.broadcast_to(mask, (B,) + mask.shape))
         edges_b = np.ascontiguousarray(np.broadcast_to(edges, (B,) + edges.shape))
         for start in range(0, len(prepped), B):
-            chunk = prepped[start: start + B]
-            n_real = len(chunk)
-            while len(chunk) < B:  # pad to the fixed batch size
-                chunk.append(chunk[-1])
-            batch_imgs = np.stack([c["input"] for c in chunk])
+            with trace.span("serve.batch"):
+                chunk = prepped[start: start + B]
+                n_real = len(chunk)
+                while len(chunk) < B:  # pad to the fixed batch size
+                    chunk.append(chunk[-1])
+                batch_imgs = np.stack([c["input"] for c in chunk])
             out = decode(self.model, batch_imgs, coords_b, mask_b, edges_b)
-            logits = out["pred_logits"].cpu().numpy()
-            pcoords = out["pred_coords"].cpu().numpy()
-            lengths = out["lengths"].cpu().numpy()
-            active = (np.arange(logits.shape[1])[None, :]
-                      < lengths[:, None])
-            kpts = extract_pred_keypoints(
-                logits, pcoords, active, np.full((B,), N))
-            gen = [
-                (np.arange(N) < int(
-                    ((logits[i].argmax(-1) == TokenType.coord)
-                     & active[i]).sum()))
-                for i in range(B)
-            ]
-            for i in range(n_real):
-                ox, oy = chunk[i]["origin"]
-                sx, sy = chunk[i]["scale"]
-                pix = kpts[i].astype(np.float64) * cfg.image_size
-                pix[:, 0] = pix[:, 0] * sx + ox
-                pix[:, 1] = pix[:, 1] * sy + oy
-                results.append({
-                    "keypoints": pix,
-                    "generated": gen[i],
-                    "length": int(lengths[i]),
-                })
+            with trace.span("serve.fetch"):
+                logits = out["pred_logits"].cpu().numpy()
+                pcoords = out["pred_coords"].cpu().numpy()
+                lengths = out["lengths"].cpu().numpy()
+            with trace.span("serve.extract"):
+                active = (np.arange(logits.shape[1])[None, :]
+                          < lengths[:, None])
+                kpts = extract_pred_keypoints(
+                    logits, pcoords, active, np.full((B,), N))
+                gen = [
+                    (np.arange(N) < int(
+                        ((logits[i].argmax(-1) == TokenType.coord)
+                         & active[i]).sum()))
+                    for i in range(B)
+                ]
+                for i in range(n_real):
+                    ox, oy = chunk[i]["origin"]
+                    sx, sy = chunk[i]["scale"]
+                    pix = kpts[i].astype(np.float64) * cfg.image_size
+                    pix[:, 0] = pix[:, 0] * sx + ox
+                    pix[:, 1] = pix[:, 1] * sy + oy
+                    results.append({
+                        "keypoints": pix,
+                        "generated": gen[i],
+                        "length": int(lengths[i]),
+                    })
         return results

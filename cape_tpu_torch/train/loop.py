@@ -56,7 +56,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..config import CAPEConfig
 from ..data.episodic import (EpisodicSampler, episode_batches,
                              eval_batch_plan, validate_episode_batch)
@@ -228,7 +228,8 @@ def train_loop(
         prof = None
         for it, batch in enumerate(logger.log_every(
                 batches, print_freq, header=f"Epoch [{epoch}]")):
-            # a torch.profiler trace of steps 2-4 of the first epoch
+            # a torch.profiler trace of steps 2-4 of the first epoch, with
+            # the program's spans
             if cfg.profile_dir and epoch == start_epoch and it == 2:
                 prof = _start_profile()
             state, metrics = train_step(state, batch, gen)
@@ -381,18 +382,27 @@ def instrumented(on_batch: Callable, on_step: Callable,
 
 
 def _start_profile():
+    """A live profiler, with the program's spans (`trace`) on, so that the
+    trace shows them (`cape.<span>`) beside the kernels; returns the
+    profiler and whether spans were on before."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.start()
-    return prof
+    was = trace.enabled()
+    trace.enable()
+    return prof, was
 
 
-def _stop_profile(prof, profile_dir: str, epoch: int) -> None:
+def _stop_profile(profiling, profile_dir: str, epoch: int) -> None:
+    prof, was = profiling
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
+    trace.enable(was)
+    if not was:
+        trace.take()        # the profiled steps' spans: in the trace alone
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"train_epoch{epoch}_steps2-4.json")
     prof.export_chrome_trace(path)

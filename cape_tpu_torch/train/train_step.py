@@ -17,7 +17,11 @@ at the first call per batch shape and replayed after (`graphs`), with
 the optimizer's scalars written to the device by the host's count
 (`FusedAdamW.prepare`); `make_scan_train_step` queues N replays with no
 host read, the counterpart of its `lax.scan`. `graphs.step_route` names
-the configs that stay eager.
+the configs that stay eager. A micro-step is the root span
+`train.micro_step` (`trace`): `step.prepare` (the optimizer's host count
+and scalars, the program's lookup), then on the captured route
+`step.copy_in`, `step.replay` and `step.clone` (the metrics out of the
+graph's buffer).
 
 Across processes (a `torch.distributed` group made before the step, see
 `parallel`) each rank steps on its share of the global batch, and the
@@ -35,6 +39,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..config import CAPEConfig
 from ..losses import cape_criterion
 from ..losses.criterion import loss_denominators
@@ -154,16 +159,21 @@ def _micro_step_runner(model: CAPE, cfg: CAPEConfig, steps_per_epoch: int):
             raise ValueError(f"the state's optimizer has steps_per_epoch "
                              f"{state.tx.steps_per_epoch}, the step "
                              f"{steps_per_epoch}")
-        emit = state.tx.prepare(state.opt_state)
-        if captured:
-            program = graphs.step_program(model, state, batch, generator)
-            keys, out = program.run(model, cfg, state, batch, emit)
-            values = out.clone().unbind(0)
-        else:
-            metrics = micro_step(model, cfg, state,
-                                 _to_device(batch, model.device),
-                                 generator, emit, multi)
-            keys, values = list(metrics), list(metrics.values())
+        with trace.span("train.micro_step", root=True):
+            with trace.span("step.prepare"):
+                emit = state.tx.prepare(state.opt_state)
+                program = (graphs.step_program(model, state, batch,
+                                               generator)
+                           if captured else None)
+            if captured:
+                keys, out = program.run(model, cfg, state, batch, emit)
+                with trace.span("step.clone"):
+                    values = out.clone().unbind(0)
+            else:
+                metrics = micro_step(model, cfg, state,
+                                     _to_device(batch, model.device),
+                                     generator, emit, multi)
+                keys, values = list(metrics), list(metrics.values())
         state.step += 1
         return keys, values
 

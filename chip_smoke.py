@@ -1303,7 +1303,7 @@ def _held_by_programs(torch, graphs, model):
 def _graph_decodes(torch, np, model, model_p, card):
     """Captured against eager decodes (bit-equal) for every selection, the
     host reads per request, the chunk sweep and the decode step's ms."""
-    from cape_tpu_torch import graphs
+    from cape_tpu_torch import graphs, trace
     from cape_tpu_torch.models.cape import DECODE_CHUNK, decode_chunked
 
     cfg = model.cfg
@@ -1328,7 +1328,7 @@ def _graph_decodes(torch, np, model, model_p, card):
                 check(len(graphs.programs(m)) == 1,
                       f"{label}: the decode captured no program")
                 _reset_counts()
-                r0 = graphs.decode.host_reads
+                r0 = trace.counters().get("decode.host_reads", 0)
                 again, syncs = _sync_reads(
                     torch, lambda: graphs.decode(m, *inputs,
                                                  force_length=force))
@@ -1341,7 +1341,7 @@ def _graph_decodes(torch, np, model, model_p, card):
                       and torch.equal(eager[k], again[k]),
                       f"{label}, force_length {force}: captured {k} is not "
                       "the eager decode's")
-            n_reads = graphs.decode.host_reads - r0
+            n_reads = trace.counters()["decode.host_reads"] - r0
             check(n_reads == len(syncs)
                   and n_reads <= -(-steps // DECODE_CHUNK),
                   f"{label}: {n_reads} reads of the exit flag, host syncs "

@@ -24,6 +24,7 @@ from cape_tpu_torch.data.builder import build_mp100_cape
 from cape_tpu_torch.data.synthetic import make_synthetic_mp100
 from cape_tpu_torch.models.backbone import FrozenAffine
 from cape_tpu_torch.models.cape import CAPE
+from cape_tpu_torch import trace as program_trace
 from cape_tpu_torch.train import loop as port_loop
 from cape_tpu_torch.utils import checkpoint as ck
 
@@ -145,12 +146,19 @@ def test_early_stopping(runs, tmp_path, capsys):
 
 def test_profile_dir_writes_a_trace(runs, tmp_path):
     """`profile_dir`: a torch.profiler trace from step 2 of the first
-    epoch, stopped at step 4 or at the epoch's end (4 steps here)."""
+    epoch, stopped at step 4 or at the epoch's end (4 steps here), with
+    the program's spans in it; they are off again after."""
     _port_run(runs, tmp_path / "out", epochs=1, episodes_per_epoch=4,
               profile_dir=str(tmp_path / "prof"))
     (trace,) = os.listdir(tmp_path / "prof")
     assert trace.endswith(".json") and os.path.getsize(
         tmp_path / "prof" / trace) > 0
+    with open(tmp_path / "prof" / trace) as f:
+        text = f.read()
+    assert '"cape.train.micro_step"' in text
+    assert '"cape.step.prepare"' in text
+    assert not program_trace.enabled()
+    assert program_trace.take()["spans"] == []
 
 
 def test_resnet_weights_loaded_before_the_state(runs, tmp_path):
