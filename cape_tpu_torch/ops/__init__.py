@@ -1,9 +1,10 @@
 """Kernels of the serving and training paths and the MSDA core around them.
 
-`gather.quad_gather` (with its backward `gather.quad_scatter`) and
-`msda_kernel.msda_forward` launch hand-written CUDA kernels (`csrc/`) on
-CUDA tensors and run their plain PyTorch versions on CPU tensors; `_build`
-compiles the kernels at first use.
+`gather.quad_gather` (with its backward `gather.quad_scatter`),
+`msda_kernel.msda_forward` and `msda_kernel.msda_backward` launch
+hand-written CUDA kernels (`csrc/`) on CUDA tensors and run their plain
+PyTorch versions on CPU tensors; `_build` compiles the kernels at first
+use.
 """
 
 from .gather import quad_gather, quad_scatter
@@ -14,7 +15,7 @@ from .msda import (
     ms_deform_attn_core_prequad,
     precompute_quad_slab,
 )
-from .msda_kernel import ms_deform_attn_pallas, msda_forward
+from .msda_kernel import ms_deform_attn_pallas, msda_backward, msda_forward
 
 
 
@@ -27,6 +28,7 @@ def launch_counters():
     return {"quad_gather": (gather.quad_gather, "launches"),
             "quad_scatter": (gather.quad_scatter, "launches"),
             "msda_forward": (msda_kernel.msda_forward, "launches"),
+            "msda_backward": (msda_kernel.msda_backward, "launches"),
             "fused_fwd": (msda_fused.fused_level_sample, "launches"),
             "fused_bwd": (msda_fused.fused_level_sample, "bwd_launches"),
             "quadfused_fwd": (msda_fused.quadfused_level_sample, "launches"),
@@ -36,7 +38,8 @@ def launch_counters():
 
 __all__ = [
     "launch_counters",
-    "quad_gather", "quad_scatter", "msda_forward", "ms_deform_attn",
+    "quad_gather", "quad_scatter", "msda_forward", "msda_backward",
+    "ms_deform_attn",
     "ms_deform_attn_core", "ms_deform_attn_core_naive",
     "ms_deform_attn_core_prequad", "precompute_quad_slab",
     "ms_deform_attn_pallas",

@@ -217,8 +217,11 @@ struct Block {
   unsigned short *cnt, *stage, *list;
   float *acc, *part;
 
+  // `cluster_id`: this block's cluster among those of the kernel's tiles
+  // (b * tiles + tile), where it is not the block's index in the grid
   __device__ Block(unsigned char* smem, int use_tile, int n, int N_, int C,
-                   int rows_per_tile, int tiles, int cap_, int halo) {
+                   int rows_per_tile, int tiles, int cap_, int halo,
+                   long long cluster_id = -1) {
     K = 1;
     rank = 0;
     if (use_tile) {
@@ -226,7 +229,7 @@ struct Block {
       K = (int)cluster.num_blocks();
       rank = (int)cluster.block_rank();
     }
-    const long long cid = blockIdx.x / K;  // b * tiles + tile
+    const long long cid = cluster_id >= 0 ? cluster_id : blockIdx.x / K;
     b = cid / tiles;
     tile = (int)(cid - b * tiles);
     row0 = tile * rows_per_tile;
@@ -275,7 +278,8 @@ struct Block {
 
   // List the entries of the pass from slot s0 on by key, in the same
   // order every run (a counting sort in shared memory); `seen(i, g)` is
-  // called for every entry i of the pass with its index value g.
+  // called for every entry i of the pass with its index value g, read
+  // from `gib` (`sort`) or computed by `index(i)` (`sort_by`).
   //  1. Each warp scans its slots (8 coalesced loads in flight a lane),
   //     keeps those whose key is in the tile's range, in its scan order
   //     (a ballot gives each its place), and counts them per (key, warp)
@@ -288,6 +292,10 @@ struct Block {
   template <class Seen>
   __device__ __forceinline__ void sort(const int* __restrict__ gib, int s0,
                                        Seen seen) {
+    sort_by([gib](int i) { return __ldg(gib + i); }, s0, seen);
+  }
+  template <class Index, class Seen>
+  __device__ __forceinline__ void sort_by(Index index, int s0, Seen seen) {
     const int len = min(share - s0, cap);
     const int nthr = blockDim.x, lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -300,7 +308,7 @@ struct Block {
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int oq = o0 + q * nthr + lane, i = at(s0 + oq);
-        idx[q] = (oq < len && i < N) ? __ldg(gib + i) : 0;
+        idx[q] = (oq < len && i < N) ? index(i) : 0;
       }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -375,8 +383,7 @@ struct Block {
       for (int u = 0; u < 4; ++u) {
         const int j = j0 + 32 * u + lane;
         slot[u] = j < nkept ? kept[j] : -1;
-        k[u] = slot[u] >= 0 ? key_of(__ldg(gib + at(s0 + slot[u])))
-                            : 0xffffu;
+        k[u] = slot[u] >= 0 ? key_of(index(at(s0 + slot[u]))) : 0xffffu;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -447,9 +454,12 @@ struct Block {
 
   // After the last pass: this block's share of the tile's rows summed
   // over the cluster's copies and stored, `units` units of C values a row,
-  // at out (the tile's first row).
+  // at out (the tile's first row), rows `row_units` units apart (0: rows
+  // are contiguous).
   template <class U>
-  __device__ void finish(void* __restrict__ out, int C, int units) {
+  __device__ void finish(void* __restrict__ out, int C, int units,
+                         long long row_units = 0) {
+    const long long stride = row_units ? row_units : units;
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();  // every block's copy of the tile is complete
     constexpr int W = U::kVals;
@@ -475,7 +485,7 @@ struct Block {
           a[4 * q + 3] += t.w;
         }
       }
-      U::store(out, (long long)r * units + v, U::pack(a));
+      U::store(out, (long long)r * stride + v, U::pack(a));
     }
     cluster.sync();  // no block leaves while its copy may still be read
   }

@@ -24,14 +24,18 @@ kernel on the card) followed by a weighted corner/point sum.
   which packs the frozen memory once and samples every (batch, head)'s
   L*P points with one gather per layer and step.
 - `ms_deform_attn_core_naive`: the direct 4-corner gather, the test oracle.
-- `ms_deform_attn`: `use_pallas=True` selects the whole-op kernel of
-  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`), whose backward
-  is the selected core's VJP.
+- `ms_deform_attn`: the dispatch of the model's sites. A site that
+  autograd records under 'auto', and every site with `use_pallas=True`,
+  runs the whole op as one autograd function: the forward kernel of
+  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`) and its
+  backward kernel, which save only the value, the locations and the
+  weights. Every other call is `ms_deform_attn_core`.
 
 Every function here is differentiable in the value, the sampling locations
 and the attention weights: the gather's backward is the scatter kernel of
 `ops.gather`, the fused level samples' backward the kernels of
-`ops.msda_fused`, and the bilinear and attention weights are plain PyTorch.
+`ops.msda_fused`, the whole op's `ops.msda_kernel.msda_backward`, and the
+bilinear and attention weights are plain PyTorch.
 
 The formulation is selected as in the JAX package: the `gather_impl`
 argument, else `CAPE_MSDA_GATHER` (`ops.gather.default_gather_impl`), with
@@ -49,9 +53,10 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from .gather import default_gather_impl, quad_gather
 from .msda_fused import fused_level_sample, quadfused_level_sample
-from .msda_kernel import ms_deform_attn_pallas
+from .msda_kernel import msda_backward, msda_forward, msda_plan
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -441,44 +446,72 @@ def ms_deform_attn_core_naive(
     return out.transpose(1, 2).reshape(B, Lq, H * Dh)
 
 
-class _MSDeformAttnPallas(torch.autograd.Function):
-    """Whole-op kernel forward, core VJP backward
-    (`cape_tpu/ops/msda.py:542-557`): the backward re-runs
-    `ms_deform_attn_core` under autograd, in the formulation the process
-    default selects, so that formulation's forward and backward kernels
-    run there."""
+class _MSDeformAttnWholeOp(torch.autograd.Function):
+    """The whole op: `msda_forward` forward, `msda_backward` backward (one
+    kernel each on the card). Saves only the value, the locations and the
+    weights: nothing of the (rows x 4 * Dh) gathered rows of the quad-row
+    core reaches device memory."""
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights,
                 spatial_shapes):
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         ctx.spatial_shapes = spatial_shapes
-        return ms_deform_attn_pallas(value, spatial_shapes,
-                                     sampling_locations, attention_weights)
+        return msda_forward(value, spatial_shapes, sampling_locations,
+                            attention_weights)
 
     @staticmethod
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        with torch.enable_grad():
-            out = ms_deform_attn_core(inputs[0], ctx.spatial_shapes,
-                                      inputs[1], inputs[2])
-            wrt = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wrt, grad_out,
-                                             allow_unused=True))
-        return tuple(next(grads) if n else None for n in need) + (None,)
+        if not any(need):
+            return None, None, None, None
+        value, loc, attn = ctx.saved_tensors
+        grads = msda_backward(value, ctx.spatial_shapes, loc, attn,
+                              grad_out.to(value.dtype).contiguous())
+        return tuple(g if n else None for g, n in zip(grads, need)) + (None,)
+
+
+def _whole_op_route(value, sampling_locations, attention_weights) -> bool:
+    """Whether a call without `use_pallas` takes the whole-op function:
+    autograd records it (grad mode on and an input that requires grad),
+    the selection resolves to 'auto' (`_resolve_impl_for_shape`), and the
+    kernels take its shapes and dtypes (the same answer on every
+    device)."""
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations,
+                                      attention_weights))):
+        return False
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if _resolve_impl_for_shape(Lq * P) != "auto" \
+            or value.dtype not in (torch.float32, torch.bfloat16) \
+            or attention_weights.dtype != value.dtype \
+            or sampling_locations.dtype != torch.float32:
+        return False
+    try:
+        msda_plan(B, S, Lq, H, Dh, L, value.element_size())
+    except ValueError:
+        return False
+    return True
 
 
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
                    attention_weights, use_pallas: bool = False):
-    """Backend dispatch: `use_pallas=True` runs the whole-op kernel of
-    `ops.msda_kernel` with the core's VJP for training, else
-    `ms_deform_attn_core` in the formulation the process default selects.
-    All compute the same function."""
-    if not use_pallas:
+    """Backend dispatch; every route computes the same function.
+
+    The whole-op function (`msda_forward` and `msda_backward`, counted by
+    the `msda.whole_op` trace counter) takes the call with `use_pallas=True`
+    and where `_whole_op_route` says so: an 'auto' site that autograd
+    records, where the quad-row core's saved gathered rows and the backward
+    of its blend are the cost. Every other call, a forced
+    `CAPE_MSDA_GATHER` / `CAPE_MSDA_TINY` name or a call without gradients
+    (serving, eval, the decode), is `ms_deform_attn_core` in the selected
+    formulation."""
+    if not (use_pallas or _whole_op_route(value, sampling_locations,
+                                          attention_weights)):
         return ms_deform_attn_core(
             value, spatial_shapes, sampling_locations, attention_weights)
+    trace.count("msda.whole_op")
     shapes = tuple(tuple(s) for s in spatial_shapes)
-    return _MSDeformAttnPallas.apply(value, sampling_locations,
-                                     attention_weights, shapes)
+    return _MSDeformAttnWholeOp.apply(value, sampling_locations,
+                                      attention_weights, shapes)

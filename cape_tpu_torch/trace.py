@@ -26,7 +26,10 @@ off:
 - `graphs.captures`: CUDA graphs captured (`graphs._Graph`);
 - `decode.steps`: token bodies run, on either decode route;
 - `decode.host_reads`: the host's reads of "has every sample finished?"
-  between two chunks of token bodies.
+  between two chunks of token bodies;
+- `msda.whole_op`: MSDA calls that took the whole-op autograd function
+  (`ops.msda.ms_deform_attn`); a captured step counts its sites once, at
+  the capture.
 """
 
 from __future__ import annotations

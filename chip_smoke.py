@@ -8,7 +8,7 @@ and exits non-zero at the first phase that fails:
 1. card identity (`nvidia-smi` name and power limit), the versions of
    cv2 and PIL (or "absent") and the resize and decode routes the port
    takes;
-2. each of the seven kernels against its plain PyTorch version on the
+2. each of the eight kernels against its plain PyTorch version on the
    card at the shapes of the serving and training paths (fp32 and bf16),
    with two times, its plain version's time, a library call's time where
    one computes the same function, and its bound. The two row kernels
@@ -18,6 +18,10 @@ and exits non-zero at the first phase that fails:
    them; the whole-op `msda_forward` at the serving encoder, the training
    encoder and the teacher-forced decoder with uniform and model-like
    locations (and a profiler listing that one call is one kernel); the
+   whole-op `msda_backward` at the training encoder and the teacher-forced
+   decoder, the same two location sets, each call run twice (bit-equal),
+   one call one kernel, and a whole site (forward and backward) against
+   the quad-row core under autograd; the
    fused forwards at the encoder's four levels, the decoder's level 0 and
    the decode step; the two fused backwards at the encoder's four levels
    and the decoder's level 0, the same two index sets, with dw4 exactly 0
@@ -47,9 +51,11 @@ and exits non-zero at the first phase that fails:
    scoring) with episodes per second;
 7. the training path at the flagship width: `make_train_step` takes 8
    micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
-   48 gathers and 48 scatters each; the forward/backward/optimizer split;
-   two micro-steps with `use_pallas_msda=True`; two each under `fused`
-   and `fusedq` (48 forward and 48 backward launches of the fused
+   12 `msda_forward` and 12 `msda_backward` launches each (every MSDA
+   site through the whole-op kernels); the forward/backward/optimizer
+   split; two micro-steps with `use_pallas_msda=True` (the same
+   launches); three each under `xla` (48 gathers and 48 scatters),
+   `fused` and `fusedq` (48 forward and 48 backward launches of the fused
    kernels, no gather and no scatter);
 8. the training entry point at the flagship width, in this process:
    `cli.train` with augmentation and a seeded torchvision `resnet_weights`
@@ -64,13 +70,15 @@ and exits non-zero at the first phase that fails:
    loop's peak memory;
 9. the model variants at the flagship width (`phase_variants`; no lr
    warmup): v2, v3, v4, v41, v5, v6 and v1, each with
-   `dec_attn_concat_src`, take 4 micro-steps (one real update; 48 gathers
-   and 48 scatters each, 24 for v3, whose decoder has no MSDA), every
+   `dec_attn_concat_src`, take 4 micro-steps (one real update; 12
+   whole-op forward and backward launches each, 6 for v3, whose decoder
+   has no MSDA), every
    trained parameter moves, and their decode raises the JAX package's
    ValueError; v2 and v3 take 2 micro-steps under `fused` (48/24 forward
    and backward launches, no gather); the legacy support encoder and
    `dec_qkv_proj=False` answer a request of 8 (enc + dec x steps gathers)
-   and take 4 micro-steps; the fp32 loss and gradients of v2, v3, v41 and
+   and take 4 micro-steps (12 whole-op launches each); the fp32 loss and
+   gradients of v2, v3, v41 and
    the legacy encoder on the card against fp64 on the CPU, at the reduced
    config of phase 10; a
    synthetic reference checkpoint (random tensors in the reference's key
@@ -83,9 +91,9 @@ and exits non-zero at the first phase that fails:
    eval batch of 4 episodes scored by `evaluate_cape` (decode logits,
    counts and every keypoint's normalised distance), and
    at a reduced config the loss and every parameter's gradient on the
-   default, `use_pallas_msda`, `fused` and `fusedq` paths, a scatter that
-   loses duplicate indices (which that check must reject), and one real
-   update;
+   default, `use_pallas_msda`, `xla`, `fused` and `fusedq` paths, a
+   scatter that loses duplicate indices on `xla` (which that check must
+   reject), and one real update;
 11. multi-process data parallelism (`phase_ddp`): two ranks as
    subprocesses of this script (`--ddp-rank`) on the one card, in an
    explicitly requested `gloo` group on CUDA tensors (a stand-in for two
@@ -93,8 +101,9 @@ and exits non-zero at the first phase that fails:
    12 episodes sharded (`evaluate_cape(multihost=True)`: the stats and
    the gathered decode outputs must be the single-process run's), take a
    flagship update of 4 micro-steps of 2 query images a rank (the
-   flagship micro-step of 4 split in two; 48 gathers and 48 scatters a
-   micro-step on each rank; the masters bit-equal across the ranks), and
+   flagship micro-step of 4 split in two; 12 whole-op forward and
+   backward launches a micro-step on each rank; the masters bit-equal
+   across the ranks), and
    two fp32 micro-steps at phase 10's reduced config, whose reduced
    gradient and update are held against the single-process step on the
    same global batch with phase 10's tolerances; ms per micro-step and
@@ -104,7 +113,8 @@ and exits non-zero at the first phase that fails:
 12. the workflows around the CLIs (`phase_workflows`), each through its
    entry point in this process with the kernel counts set to 0 just
    before it and read just after, one `workflow {...}` line each (wall,
-   peak memory, `quad_gather` / `quad_scatter` launches): `cli.launch
+   peak memory, the launches of `quad_gather`, `quad_scatter`,
+   `msda_forward` and `msda_backward`): `cli.launch
    smoke` (the synthetic fixture, the tiny model), `cli.kfold quick` over
    the two folds of a two-split tree at the flagship width (1 epoch, 8
    test episodes a fold, the summary; fold 2's peak memory at most 5%
@@ -150,8 +160,9 @@ kernels' entries also carry `library_device_ms` (the library call
 captured and replayed the same way), and the kernels the evaluation path
 runs `eval_launches` (its default run for `quad_gather`, its `fused` run
 for `fused_fwd`), the kernels the training entry point runs
-`train_loop_launches` (its auto run for `quad_gather` and `quad_scatter`,
-its `fused` epoch for `fused_fwd` and `fused_bwd`), and every kernel
+`train_loop_launches` (its auto run for `quad_gather`, `msda_forward` and
+`msda_backward`, its `fused` epoch for `fused_fwd` and `fused_bwd`), and
+every kernel
 `variant_launches`, its launches in phase 9's runs (training steps and
 requests; not its fp32 comparisons). The script prints its total wall
 before the two JSON lines.
@@ -339,9 +350,10 @@ def phase_kernels(torch, card):
 
     gather_entry = _gather_kernel(torch, g, card)
     msda_entry = _msda_kernel(torch, g, card)
+    msda_bwd_entry = _msda_bwd_kernel(torch, g, card)
     scatter = _scatter_kernel(torch, g, card)
     fused = _fused_kernels(torch, g, card)
-    return [gather_entry, msda_entry, scatter] + fused
+    return [gather_entry, msda_entry, msda_bwd_entry, scatter] + fused
 
 
 def _model_locations(torch, g, shapes, B, H, P, refs):
@@ -564,6 +576,149 @@ def _msda_kernel(torch, g, card):
     return {"name": "msda_forward", "route": "cuda",
             "source": "cape_tpu_torch/ops/csrc/msda.cu",
             "replaces": "cape_tpu/ops/msda_pallas.py:48",
+            "launches": 0, "max_abs_err": err, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+            else "operations", "library_ms": None}
+
+
+def _msda_bwd_bound_ms(torch, value, shapes, loc, attn):
+    """The least time of the op's backward on these inputs, whatever
+    computes it: the locations, attention weights and dout read once, each
+    distinct in-range value row the corners select read once, the three
+    gradients written once (grad_value whole); against the fp32
+    multiply-adds of the in-range corners (the dot and the scaled dout)."""
+    from cape_tpu_torch.ops.msda_kernel import prepare_corners
+
+    B, S, H, Dh = value.shape
+    elt = value.element_size()
+    idx, _, valid = prepare_corners(shapes, loc, attn)
+    ok = valid > 0
+    rows = (torch.arange(B * H, device=idx.device)[:, None, None] * S
+            + idx)[ok]
+    nbytes = (loc.numel() * 4 * 2 + attn.numel() * elt * 2
+              + torch.unique(rows).numel() * Dh * elt
+              + B * loc.shape[1] * H * Dh * elt + value.numel() * elt)
+    flops = 4 * Dh * int(ok.sum().item())
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def _msda_bwd_kernel(torch, g, card):
+    """msda_backward (csrc/msda_bwd.cu) against its plain version at the
+    training update's two sites (`MSDA_CASES`' training encoder and
+    teacher-forced decoder), uniform and model-like locations, fp32 and
+    bf16, each run twice (the same bits every run: the value rows are
+    summed on row lists); a profiler listing of one call (one kernel);
+    then its times in bf16 with the same-work bound, and a whole site
+    (forward and backward) under the whole-op function against the
+    quad-row core under autograd. Returns the entry of the kernels line:
+    the training encoder with model-like locations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cape_tpu_torch.models.cape import level_shapes
+    from cape_tpu_torch.ops import msda as ops_msda
+    from cape_tpu_torch.ops import msda_kernel as mk
+
+    shapes = level_shapes(512, 4)
+    # sums of the same fp32 terms in another order: relative to the
+    # largest gradient; bf16 gradients one rounding of those sums apart
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+    err, times = 0.0, {}
+    for site in ("training encoder", "teacher-forced decoder"):
+        B, Lq = MSDA_CASES[site]
+        for kind in ("uniform", "model"):
+            for dtype in tols:
+                value, loc, attn = _msda_inputs(torch, g, shapes, B, Lq, kind,
+                                                dtype)
+                dout = torch.randn(B, loc.shape[1], value.shape[2]
+                                   * value.shape[3], generator=g,
+                                   device=value.device).to(dtype)
+                got = mk.msda_backward(value, shapes, loc, attn, dout)
+                again = mk.msda_backward(value, shapes, loc, attn, dout)
+                want = mk.msda_backward_plain(value, shapes, loc, attn, dout)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"msda_backward [{site}, {kind}, {dtype}]: two runs "
+                      "differ")
+                atol, rtol = tols[dtype]
+                line = []
+                for name, a, b in zip(("value", "loc", "attn"), got, want):
+                    check(a.dtype == b.dtype and a.shape == b.shape,
+                          f"msda_backward: grad_{name} {a.dtype} "
+                          f"{tuple(a.shape)}, plain {b.dtype} "
+                          f"{tuple(b.shape)}")
+                    scale = b.float().abs().max().item()
+                    e = (a.float() - b.float()).abs().max().item()
+                    line.append(f"grad_{name} {e:.3e} of {scale:.3e}")
+                    torch.testing.assert_close(
+                        a.float(), b.float(), atol=atol * max(scale, 1.0),
+                        rtol=rtol if name != "loc" else 1e-5)
+                    err = max(err, e / max(scale, 1.0))
+                print(f"msda_backward [{site}, {kind} locations, {dtype}]: "
+                      f"max abs err {', '.join(line)}; bit-equal rerun "
+                      f"(tolerance {atol:g} x max + {rtol:g} rel)",
+                      flush=True)
+                del got, again, want
+                if dtype != torch.bfloat16:
+                    continue
+                b_ms, o_ms = _msda_bwd_bound_ms(torch, value, shapes, loc,
+                                                attn)
+                args = (value, shapes, loc, attn, dout)
+                t = {"shape": f"value {tuple(value.shape)} bf16, loc "
+                              f"{tuple(loc.shape)}",
+                     "inputs": "L2-warm" if b_ms * 1e-3 * HBM_BYTES_PER_S
+                     < L2_BYTES else "above the L2"}
+                t["ms"], t["device_ms"] = both_ms(
+                    torch, lambda: mk.msda_backward(*args))
+                t["plain_ms"] = cuda_ms(
+                    torch, lambda: mk.msda_backward_plain(*args), iters=3,
+                    warmup=1)
+                t["bytes_ms"], t["ops_ms"] = b_ms, o_ms
+                t["bound_share"] = max(b_ms, o_ms) / t["device_ms"]
+
+                def site_ms(whole):
+                    v, lc, a = (x.detach().requires_grad_(True)
+                                for x in (value, loc, attn))
+
+                    def step():
+                        out = (ops_msda.ms_deform_attn(v, shapes, lc, a)
+                               if whole else ops_msda.ms_deform_attn_core(
+                                   v, shapes, lc, a, gather_impl="xla"))
+                        torch.autograd.grad(out, (v, lc, a), dout)
+                    return device_ms(torch, step, launches=4, replays=3)
+
+                t["site_ms_whole_op"] = site_ms(True)
+                t["site_ms_quad_rows"] = site_ms(False)
+                times[site, kind] = t
+                print(f"msda_backward [{site}, {kind} locations] "
+                      f"{json.dumps(t)} ({card})", flush=True)
+                del value, loc, attn, dout, args
+
+    # one call is one launch on the card
+    value, loc, attn = _msda_inputs(torch, g, shapes, 4, 200, "model",
+                                    torch.bfloat16)
+    dout = torch.randn(4, 200, 256, generator=g, device=value.device).to(
+        torch.bfloat16)
+    mk.msda_backward(value, shapes, loc, attn, dout)
+    torch.cuda.synchronize()
+    n0 = mk.msda_backward.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mk.msda_backward(value, shapes, loc, attn, dout)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = mk.msda_backward.launches - n0
+    print(f"msda_backward on the card: {n} launch, device events {names}",
+          flush=True)
+    check(n == 1 and len(names) == 1 and "msda_backward_kernel" in names[0],
+          "msda_backward is not one kernel launch on the card")
+    t = times["training encoder", "model"]
+    return {"name": "msda_backward", "route": "cuda",
+            "source": "cape_tpu_torch/ops/csrc/msda_bwd.cu",
+            "replaces": "none (the JAX package differentiates its quad-row "
+                        "core)",
             "launches": 0, "max_abs_err": err, "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
@@ -1566,6 +1721,10 @@ def _graph_train(torch, np, card, only=None):
         print(f"  the captured step's programs held {hc[0]} bytes allocated "
               f"and {hc[1]} reserved ({card})", flush=True)
         check(cc == ce, f"{label}: captured launches {cc}, eager {ce}")
+        if label.startswith("auto"):
+            sites = cfg.enc_layers + cfg.dec_layers
+            _check_counts(cc, f"{label}: the captured micro-step",
+                          msda_forward=sites, msda_backward=sites)
         if label == "fused, dropout 0":
             check(same, f"{label}: captured masters differ by {diff:.3e}")
         if label == "auto, dropout 0":
@@ -2007,9 +2166,10 @@ TRAIN_LOOP_FLAGS = ["--epochs", "2", "--episodes_per_epoch", "16",
                     "--print_freq", "0"]
 
 #: the largest master difference allowed between the straight run's
-#: `epoch_1` and one resumed from its `epoch_0` under `auto`, where
-#: `quad_scatter`'s fp32 sums run in another order each run: 3x the
-#: largest gap measured (1.333e-05 over four runs, NVIDIA H100 80GB HBM3)
+#: `epoch_1` and one resumed from its `epoch_0` under `auto`, set when its
+#: backward was `quad_scatter`, whose fp32 sums run in another order each
+#: run: 3x the largest gap measured (1.333e-05 over four runs, NVIDIA H100
+#: 80GB HBM3). The whole-op backward gives the same bits every run.
 RESUME_AUTO_TOL = 4e-05
 
 
@@ -2235,9 +2395,12 @@ def phase_train_loop(torch, np, card, root):
     enc = cfg.enc_layers * L
     val_gathers = sum(enc + cfg.dec_layers * _bodies(s) for s in a.steps) \
         + len(a.steps) * per_micro
+    # training sites take the whole-op kernels; validation has no grad
+    sites = cfg.enc_layers + cfg.dec_layers
     _check_counts(a.counts, "the training run (auto)",
-                  quad_gather=n_epochs * micro * per_micro + val_gathers,
-                  quad_scatter=n_epochs * micro * per_micro)
+                  quad_gather=val_gathers,
+                  msda_forward=n_epochs * micro * sites,
+                  msda_backward=n_epochs * micro * sites)
 
     # the backbone: the folded npz values are the affines' masters and did
     # not move (frozen); a conv weight moved; the bf16 model holds the cast
@@ -2418,7 +2581,8 @@ def phase_train_loop(torch, np, card, root):
           f"save {save_ms:.3f} ms, restore {restore_ms:.3f} ms ({card})",
           flush=True)
     launches = {"quad_gather": a.counts["quad_gather"],
-                "quad_scatter": a.counts["quad_scatter"],
+                "msda_forward": a.counts["msda_forward"],
+                "msda_backward": a.counts["msda_backward"],
                 "fused_fwd": f.counts["fused_fwd"],
                 "fused_bwd": f.counts["fused_bwd"]}
     del state, model, a
@@ -2530,8 +2694,8 @@ def _train_batch(np, cfg, rng):
 def phase_training(torch, np, card):
     """The flagship teacher-forced training step: 8 micro-steps = 2 real
     AdamW updates (accumulation_steps=4) with dropout 0.1, 4 query images
-    each; then the forward/backward/optimizer split, and one micro-step on
-    the use_pallas_msda path."""
+    each, every MSDA site through the whole-op forward and backward
+    kernels; then the forward/backward/optimizer split."""
     from cape_tpu_torch import CAPE, CAPEConfig
     from cape_tpu_torch.train import create_train_state, make_train_step
     from cape_tpu_torch.train.state import global_norm
@@ -2552,9 +2716,9 @@ def phase_training(torch, np, card):
     batches = [_train_batch(np, cfg, rng) for _ in range(8)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = [p for p in model.parameters()]
-    per_step = cfg.enc_layers * cfg.num_feature_levels \
-        + cfg.dec_layers * cfg.num_feature_levels
-    launches = {"quad_gather": 0, "quad_scatter": 0, "msda_forward": 0}
+    # every MSDA site takes the whole-op forward and backward kernels
+    sites = cfg.enc_layers + cfg.dec_layers
+    launches = {"msda_forward": 0, "msda_backward": 0}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2577,8 +2741,8 @@ def phase_training(torch, np, card):
               f"launches {counts}", flush=True)
         check(all(np.isfinite(v) for v in m.values()), "non-finite metrics")
         check(m["grad_norm"] > 0, "zero gradient norm")
-        _check_counts(counts, f"micro-step {i + 1}", quad_gather=per_step,
-                      quad_scatter=per_step)
+        _check_counts(counts, f"micro-step {i + 1}", msda_forward=sites,
+                      msda_backward=sites)
         same_p = all(torch.equal(a, b) for a, b in zip(before_p, params))
         changed_m = sum(not torch.equal(a, b) for a, b in
                         zip(before_m, state.opt_state.masters))
@@ -2641,10 +2805,9 @@ def phase_training(torch, np, card):
 
 def phase_training_pallas(torch, np, model, card):
     """Flagship micro-steps with use_pallas_msda=True on the same weights,
-    each with 12 msda_forward launches (6 encoder + 6 decoder sites) and,
-    in the backward's recomputed core, 48 gathers and 48 scatters; the
-    second is timed warm. Its deterministic loss against the default
-    path's (bf16)."""
+    each with 12 msda_forward and 12 msda_backward launches (6 encoder + 6
+    decoder sites), as the default path's; the second is timed warm. Its
+    deterministic loss against the default path's (bf16)."""
     from cape_tpu_torch import CAPE
     from cape_tpu_torch.train import create_train_state, make_train_step
     from cape_tpu_torch.train.train_step import forward_losses
@@ -2664,7 +2827,6 @@ def phase_training_pallas(torch, np, model, card):
     step = make_train_step(model_p, cfg, spe)
     gen = torch.Generator(device="cuda").manual_seed(1)
     sites = cfg.enc_layers + cfg.dec_layers
-    per_step = sites * cfg.num_feature_levels
     for i in range(2):
         _reset_counts()
         t0 = time.perf_counter()
@@ -2679,19 +2841,20 @@ def phase_training_pallas(torch, np, model, card):
         check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
               "use_pallas_msda step: non-finite or zero metrics")
         _check_counts(counts, "the use_pallas_msda micro-step",
-                      quad_gather=per_step, quad_scatter=per_step,
-                      msda_forward=sites)
+                      msda_forward=sites, msda_backward=sites)
     return counts
 
 
 def phase_training_fused(torch, np, model, card):
-    """Flagship micro-steps under CAPE_MSDA_GATHER=fused and fusedq on the
-    same weights: per micro-step 48 forward and 48 backward launches of
-    the selected kernels (6 encoder + 6 decoder sites x 4 levels; no remat
-    at this batch), no gather and no scatter. Three micro-steps each (the
-    first is the warm-up), next to three more of the default path in the
-    same state of the card; the deterministic bf16 loss against the
-    default path's. Returns the backward launches of each selection."""
+    """Flagship micro-steps under CAPE_MSDA_GATHER=xla (the quad-row
+    composition: 48 gathers and 48 scatters a micro-step), fused and
+    fusedq (48 forward and 48 backward launches of the selected kernels,
+    no gather and no scatter; 6 encoder + 6 decoder sites x 4 levels; no
+    remat at this batch) on the same weights. Three micro-steps each (the
+    first is the warm-up), next to three more of the default path (12
+    whole-op forward and backward launches) in the same state of the card,
+    with each selection's peak memory; the deterministic bf16 loss against
+    the default path's. Returns the backward launches of each selection."""
     from cape_tpu_torch.train import create_train_state, make_train_step
     from cape_tpu_torch.train.train_step import forward_losses
 
@@ -2703,7 +2866,8 @@ def phase_training_fused(torch, np, model, card):
     step = make_train_step(model, cfg, spe)
     gen = torch.Generator(device="cuda").manual_seed(2)
     launched = {}
-    for impl, kind in ((None, None), ("fused", "fused"),
+    sites = cfg.enc_layers + cfg.dec_layers
+    for impl, kind in ((None, None), ("xla", "quad"), ("fused", "fused"),
                        ("fusedq", "quadfused")):
         label = f"CAPE_MSDA_GATHER={impl}" if impl else "default path"
         if impl:
@@ -2734,14 +2898,18 @@ def phase_training_fused(torch, np, model, card):
                 check(all(np.isfinite(v) for v in m.values())
                       and m["grad_norm"] > 0,
                       f"{label} step: non-finite or zero metrics")
-                if impl:
+                if kind == "quad":
+                    _check_counts(counts, f"the {label} micro-step",
+                                  quad_gather=per_step, quad_scatter=per_step)
+                    launched[kind] += counts["quad_scatter"]
+                elif impl:
                     _check_counts(counts, f"the {label} micro-step",
                                   **{f"{kind}_fwd": per_step,
                                      f"{kind}_bwd": per_step})
                     launched[kind] += counts[f"{kind}_bwd"]
                 else:
                     _check_counts(counts, "the default micro-step",
-                                  quad_gather=per_step, quad_scatter=per_step)
+                                  msda_forward=sites, msda_backward=sites)
         print(f"{label}: peak memory over these micro-steps "
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
     return launched
@@ -2775,7 +2943,8 @@ def _grad_ratios(torch, got, want):
 #: fp32 gradient tolerance, card against CPU (see phase_fp32_grads)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 #: elements of one update allowed to differ by more than 1e-2 lr, card
-#: against CPU: 4 of 37,151,706 measured on an H100, with 25x headroom
+#: against CPU on the quad-row composition: 4 of 37,151,706 measured on an
+#: H100, with 25x headroom
 UPDATE_FAR = 100
 
 
@@ -2783,10 +2952,11 @@ def phase_fp32_grads(torch, np):
     """fp32 gradients and one real update, card (kernels) against CPU
     (plain versions), same seeded weights and batch, TF32 off, at a config
     small enough for the CPU (ResNet-50 at 128 px, 2+2 layers, dropout
-    0), on the default and the use_pallas_msda path and under
-    CAPE_MSDA_GATHER=fused and fusedq. This is the check that the value
-    path gets its gradient; a scatter that loses the contributions of
-    duplicate indices must fail it."""
+    0), on the default path (the whole-op kernels), the use_pallas_msda
+    path and under CAPE_MSDA_GATHER=xla (the quad-row composition), fused
+    and fusedq. This is the check that the value path gets its gradient;
+    a scatter that loses the contributions of duplicate indices must fail
+    it (on the quad-row composition, whose backward is that scatter)."""
     from cape_tpu_torch import CAPE, CAPEConfig
     from cape_tpu_torch.ops import gather
     from cape_tpu_torch.train import create_train_state, make_train_step
@@ -2801,10 +2971,12 @@ def phase_fp32_grads(torch, np):
     weights = CAPE(cfg, device="cpu",
                    generator=torch.Generator().manual_seed(5)).state_dict()
     models, cpu_grads = {}, {}
-    sites = (cfg.enc_layers + cfg.dec_layers) * cfg.num_feature_levels
+    layers = cfg.enc_layers + cfg.dec_layers
+    sites = layers * cfg.num_feature_levels
     for label, pallas, impl, kind in (
-            ("default", False, None, None),
-            ("use_pallas_msda", True, None, None),
+            ("default", False, None, "msda"),
+            ("use_pallas_msda", True, None, "msda"),
+            ("xla", False, "xla", "quad"),
             ("fused", False, "fused", "fused"),
             ("fusedq", False, "fusedq", "quadfused")):
         c = cfg.replace(use_pallas_msda=pallas)
@@ -2817,10 +2989,11 @@ def phase_fp32_grads(torch, np):
             l_cpu, g_cpu = _grads(torch, m_cpu, c, batch)
             _reset_counts()
             l_gpu, g_gpu = _grads(torch, m_gpu, c, batch)
-        if kind:
-            # the CPU run above counts nothing: these are the card's
-            _check_counts(_counts(), f"the fp32 {label} gradient",
-                          **{f"{kind}_fwd": sites, f"{kind}_bwd": sites})
+        # the CPU run above counts nothing: these are the card's
+        want = {"msda": dict(msda_forward=layers, msda_backward=layers),
+                "quad": dict(quad_gather=sites, quad_scatter=sites)}.get(
+            kind, {f"{kind}_fwd": sites, f"{kind}_bwd": sites})
+        _check_counts(_counts(), f"the fp32 {label} gradient", **want)
         ratios = _grad_ratios(torch, g_gpu, g_cpu)
         order = sorted(range(len(names)), key=lambda i: -ratios[i])
         value = sum(g.abs().sum().item() for n, g in zip(names, g_gpu)
@@ -2831,8 +3004,8 @@ def phase_fp32_grads(torch, np):
               f"value_proj gradient mass on the card {value:.6f} "
               f"(tolerance per tensor {GRAD_RTOL:g} of its own L2 norm + "
               f"{GRAD_ATOL:g} of the global norm: fp32 summation order of "
-              f"convs and matmuls, TF32 off, and the backward kernels' "
-              f"atomics)", flush=True)
+              f"convs, matmuls and the backward kernels, TF32 off)",
+              flush=True)
         check(value > 0, f"no gradient reached value_proj on the card "
               f"({label})")
         check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
@@ -2856,10 +3029,11 @@ def phase_fp32_grads(torch, np):
     scatter = gather.quad_scatter
     gather.quad_scatter = lossy_scatter
     try:
-        _, g_bad = _grads(torch, models["default"][1], cfg, batch)
+        with selection(CAPE_MSDA_GATHER="xla"):
+            _, g_bad = _grads(torch, models["xla"][1], cfg, batch)
     finally:
         gather.quad_scatter = scatter
-    bad = _grad_ratios(torch, g_bad, cpu_grads["default"])
+    bad = _grad_ratios(torch, g_bad, cpu_grads["xla"])
     flagged = [n for n, r in zip(names, bad) if r > 1.0]
     value_bad = [r for n, r in zip(names, bad) if "value_proj.weight" in n]
     print(f"fp32 card vs CPU with a scatter that loses duplicates: "
@@ -2869,32 +3043,49 @@ def phase_fp32_grads(torch, np):
     check(min(value_bad) > 1.0,
           "the gradient check cannot see a scatter that loses duplicates")
 
-    # one real update on each device (default path), compared in units of
-    # the group lr
-    after = {}
-    for dev, m in zip(("cpu", "cuda"), models["default"]):
-        st = create_train_state(cfg, m, spe)
-        before = [t.detach().cpu().clone() for t in st.opt_state.masters]
-        make_train_step(m, cfg, spe)(st, batch)
-        after[dev] = [(a.detach().cpu() - b) for a, b in
-                      zip(st.opt_state.masters, before)]
-    lrs = st.tx.group_lrs(0)
-    worst, n_far = 0.0, 0
-    for label, d_gpu, d_cpu in zip(st.opt_state.labels, after["cuda"],
-                                   after["cpu"]):
-        if lrs[label] == 0.0:
-            check(not d_gpu.any() and not d_cpu.any(), "a frozen leaf moved")
-            continue
-        diff = ((d_gpu - d_cpu) / lrs[label]).abs()
-        worst = max(worst, diff.max().item())
-        n_far += int((diff > 1e-2).sum())
-    total = sum(d.numel() for d in after["cpu"])
-    print(f"fp32 card vs CPU after one update: {n_far} of {total} elements "
-          f"differ by more than 1e-2 lr, the largest by {worst:.3e} lr "
-          f"(tolerance: at most {UPDATE_FAR} such elements. Adam's first "
+    # one real update on each device, compared in units of the group lr:
+    # on the quad-row composition, whose card and CPU gradients agree to
+    # fp32 noise on this batch. On the other routes (the default whole-op
+    # kernels, `fused`, and their plain versions run on the card alike) one
+    # pre-activation of encoder layer 1's FFN, 6.3e-07 from zero, lands on
+    # the other side of its ReLU on the card: the gradients above hold, but
+    # upstream of that unit many near-zero gradients change sign, which
+    # Adam's first step turns into a whole lr. That count is printed.
+    def one_update(label):
+        after = {}
+        with selection(CAPE_MSDA_GATHER="xla" if label == "xla" else None):
+            for dev, m in zip(("cpu", "cuda"), models[label]):
+                st = create_train_state(cfg, m, spe)
+                before = [t.detach().cpu().clone()
+                          for t in st.opt_state.masters]
+                make_train_step(m, cfg, spe)(st, batch)
+                after[dev] = [(a.detach().cpu() - b) for a, b in
+                              zip(st.opt_state.masters, before)]
+        lrs = st.tx.group_lrs(0)
+        worst, n_far = 0.0, 0
+        for group, d_gpu, d_cpu in zip(st.opt_state.labels, after["cuda"],
+                                       after["cpu"]):
+            if lrs[group] == 0.0:
+                check(not d_gpu.any() and not d_cpu.any(),
+                      "a frozen leaf moved")
+                continue
+            diff = ((d_gpu - d_cpu) / lrs[group]).abs()
+            worst = max(worst, diff.max().item())
+            n_far += int((diff > 1e-2).sum())
+        return n_far, worst, sum(d.numel() for d in after["cpu"])
+
+    n_far, worst, total = one_update("xla")
+    print(f"fp32 card vs CPU after one update (xla): {n_far} of {total} "
+          f"elements differ by more than 1e-2 lr, the largest by {worst:.3e} "
+          f"lr (tolerance: at most {UPDATE_FAR} such elements. Adam's first "
           f"step is g/(|g|+eps): an element whose gradient is within fp32 "
           f"noise of zero can move by up to one lr either way)", flush=True)
     check(n_far <= UPDATE_FAR, "fp32 update differs between card and CPU")
+    n_far, worst, _ = one_update("default")
+    print(f"fp32 card vs CPU after one update (default): {n_far} elements "
+          f"differ by more than 1e-2 lr, the largest by {worst:.3e} lr (the "
+          f"flipped ReLU unit's upstream; not held to {UPDATE_FAR})",
+          flush=True)
 
 
 
@@ -3220,10 +3411,10 @@ def phase_variants(torch, np, card, root):
           "images each (1 real update)", flush=True)
     for name, kw in VARIANT_TRAIN.items():
         cfg = base.replace(dec_attn_concat_src=True, **kw)
-        per = enc if name == "v3" else enc + dec
+        sites = base.enc_layers + (0 if name == "v3" else base.dec_layers)
         model, counts = _variant_steps(
             torch, np, cfg, f"{name} + dec_attn_concat_src", card, 4,
-            dict(quad_gather=per, quad_scatter=per))
+            dict(msda_forward=sites, msda_backward=sites))
         add(counts)
         msg = _check_decode_refused(torch, np, model, name)
         print(f"  {name}: the decode raised ValueError: {msg[:72]}...",
@@ -3250,7 +3441,8 @@ def phase_variants(torch, np, card, root):
         cfg = base.replace(**kw)
         model, counts = _variant_steps(
             torch, np, cfg, name, card, 4,
-            dict(quad_gather=enc + dec, quad_scatter=enc + dec))
+            dict(msda_forward=base.enc_layers + base.dec_layers,
+                 msda_backward=base.enc_layers + base.dec_layers))
         add(counts)
         pred = CAPEPredictor(cfg, model, batch_size=8)
         imgs, boxes = reqs[0]
@@ -3525,7 +3717,7 @@ def _ddp_flagship(torch, np, model, card):
     state = create_train_state(cfg, model, spe)
     step = make_train_step(model, cfg, spe)
     gen = torch.Generator(device="cuda").manual_seed(rank_seed(cfg.seed))
-    per_step = (cfg.enc_layers + cfg.dec_layers) * cfg.num_feature_levels
+    sites = cfg.enc_layers + cfg.dec_layers
     before = [m.clone() for m in state.opt_state.masters]
     times, reduce_ms = [], []
     restore = _timed_allreduce(torch, reduce_ms)
@@ -3546,7 +3738,7 @@ def _ddp_flagship(torch, np, model, card):
             check(all(np.isfinite(v) for v in m.values()),
                   "non-finite metrics")
             _check_counts(counts, f"ddp micro-step {i + 1}",
-                          quad_gather=per_step, quad_scatter=per_step)
+                          msda_forward=sites, msda_backward=sites)
     finally:
         restore()
     check(state.opt_state.gradient_step == 1, "no real update")
@@ -3813,11 +4005,22 @@ def phase_ddp(torch, np, card, model, ev, single):
           f"wall ({card})", flush=True)
 
 
+#: the kernels of the default paths: decodes and validation gather, training
+#: takes the whole-op MSDA kernels
+WORKFLOW_KERNELS = ("quad_gather", "quad_scatter", "msda_forward",
+                    "msda_backward")
+TRAINS = dict(quad_gather=True, quad_scatter=False, msda_forward=True,
+              msda_backward=True)
+DECODES = dict(quad_gather=True, quad_scatter=False, msda_forward=False,
+               msda_backward=False)
+HOST_ONLY = dict.fromkeys(WORKFLOW_KERNELS, False)
+
+
 def _workflow(torch, name, fn, **want):
     """Run one workflow with the kernel counts set to 0 just before and
     read just after. Returns (its result, a record of its wall, peak
-    device memory and the row kernels' launches). `want` names the
-    kernels the workflow must launch (True) or must not (False); no
+    device memory and the default paths' kernels' launches). `want` names
+    the kernels the workflow must launch (True) or must not (False); no
     other kernel may launch."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3831,12 +4034,11 @@ def _workflow(torch, name, fn, **want):
     rec = {"workflow": name, "wall_s": time.perf_counter() - t0,
            "peak_bytes": torch.cuda.max_memory_allocated()}
     counts = _counts()
-    rec.update({k: counts[k] for k in ("quad_gather", "quad_scatter")})
+    rec.update({k: counts[k] for k in WORKFLOW_KERNELS})
     for k, launched in want.items():
         check((counts[k] > 0) == launched,
               f"workflow {name}: {counts[k]} {k} launches")
-    check(all(counts[k] == 0 for k in counts
-              if k not in ("quad_gather", "quad_scatter")),
+    check(all(counts[k] == 0 for k in counts if k not in WORKFLOW_KERNELS),
           f"workflow {name} launched {counts}")
     return out, rec
 
@@ -3869,8 +4071,7 @@ def phase_workflows(torch, np, card, root):
         with selection(DATASET_ROOT=None,
                        OUTPUT_DIR=os.path.join(root, "smoke")):
             res, rec = _workflow(torch, "launch smoke",
-                                 lambda: launch.main(["smoke"]),
-                                 quad_gather=True, quad_scatter=True)
+                                 lambda: launch.main(["smoke"]), **TRAINS)
     finally:
         tempfile.tempdir = old_tmp
     check(len(res["history"]) == 1 and os.path.isdir(
@@ -3887,8 +4088,7 @@ def phase_workflows(torch, np, card, root):
                    SPLITS="1 2", EVAL_EPISODES="8",
                    EXTRA_TRAIN_ARGS="--print_freq 0", EXTRA_EVAL_ARGS=None):
         res, rec = _workflow(torch, "kfold quick",
-                             lambda: kfold.main(["quick"]),
-                             quad_gather=True, quad_scatter=True)
+                             lambda: kfold.main(["quick"]), **TRAINS)
     folds = res["folds"]
     check([f["fold"] for f in folds] == [1, 2], f"kfold folds {folds}")
     for f in folds:
@@ -3915,8 +4115,7 @@ def phase_workflows(torch, np, card, root):
     # the leak audit on fold 1's checkpoint
     res, rec = _workflow(torch, "audit", lambda: audit.main([
         "--checkpoint", folds[0]["checkpoint"], "--dataset_root",
-        tree["root"], "--split", "val", "--num_episodes", "8"]),
-        quad_gather=True, quad_scatter=False)
+        tree["root"], "--split", "val", "--num_episodes", "8"]), **DECODES)
     check(res["num_samples"] == 8 and not res["leak_detected"],
           f"audit: {res['num_samples']} samples, flags {res['flags']}")
     rec["flags"] = res["flags"]
@@ -3926,7 +4125,7 @@ def phase_workflows(torch, np, card, root):
     # the k-shot demonstration at the flagship width, cut to 2 epochs
     res, rec = _workflow(torch, "kshot_demo", lambda: kshot_demo.main([
         "--root", os.path.join(root, "kshot"), "--epochs", "2",
-        "--num_eval_episodes", "16"]), quad_gather=True, quad_scatter=True)
+        "--num_eval_episodes", "16"]), **TRAINS)
     check(set(res) == {"1shot", "5shot", "sensitivity", "layout_jitter",
                        "support_coord_noise",
                        "macro_delta_5shot_minus_1shot"}
@@ -3945,7 +4144,7 @@ def phase_workflows(torch, np, card, root):
         out_dir = os.path.join(root, name)
         written, rec = _workflow(torch, name, lambda: mod.main([
             "--dataset_root", tree["root"], "--num_images", "4",
-            "--output_dir", out_dir]), quad_gather=False, quad_scatter=False)
+            "--output_dir", out_dir]), **HOST_ONLY)
         imgs = [decode_rgb(p) for p in written]
         check(len(imgs) == 4 and all(i is not None and i.shape[0] == 512
                                      for i in imgs),
@@ -4027,9 +4226,11 @@ def main() -> int:
         tree.cleanup()
     # each kernel's launches from its own path's run: the serving requests
     # for the forward kernels, the training micro-steps for the backward
+    # (`quad_scatter` under CAPE_MSDA_GATHER=xla)
     launches = {"quad_gather": default_counts["quad_gather"],
                 "msda_forward": pallas_counts["msda_forward"],
-                "quad_scatter": train_counts["quad_scatter"],
+                "msda_backward": train_counts["msda_backward"],
+                "quad_scatter": fused_bwd_counts["quad"],
                 "fused_fwd": fused_counts["fused_fwd"],
                 "quadfused_fwd": fused_counts["quadfused_fwd"],
                 "fused_bwd": fused_bwd_counts["fused"],

@@ -413,8 +413,13 @@ def test_env_selects_the_core_and_the_argument_wins(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["fused", "fusedq"])
 def test_use_pallas_backward_follows_the_selection(monkeypatch, impl):
-    """`ms_deform_attn(use_pallas=True)`'s backward is the VJP of the core
-    the process default selects, as the JAX package's `f_bwd`."""
+    """`ms_deform_attn(use_pallas=True)`'s backward is the whole-op
+    `msda_backward` whatever the process default selects (it no longer
+    re-runs the selected core, as the JAX package's `f_bwd` does): the same
+    bits as the plain backward, and the selected core's VJP to fp32
+    summation order."""
+    from cape_tpu_torch.ops import msda_kernel as port_msda_kernel
+
     value, loc, w = _msda_inputs(35)
     cot = np.random.default_rng(36).normal(
         size=(value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
@@ -422,8 +427,12 @@ def test_use_pallas_backward_follows_the_selection(monkeypatch, impl):
     monkeypatch.setenv("CAPE_MSDA_GATHER", impl)
     a = _core_grads(port_msda.ms_deform_attn, value, loc, w, cot, True)
     b = _core_grads(port_msda.ms_deform_attn_core, value, loc, w, cot, impl)
-    for ga, gb in zip(a, b):
-        assert torch.equal(ga, gb)
+    plain = port_msda_kernel.msda_backward_plain(
+        *(torch.from_numpy(x) for x in (value,)), SHAPES,
+        torch.from_numpy(loc), torch.from_numpy(w), torch.from_numpy(cot))
+    for ga, gb, gp in zip(a, b, plain):
+        assert torch.equal(ga, gp)
+        torch.testing.assert_close(ga, gb, atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["fused", "fusedq", "naive", "flat"])
