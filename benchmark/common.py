@@ -25,6 +25,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from reference import backbones
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
@@ -79,6 +81,10 @@ def kind_driver(kind: str):
 
 
 # -- weights ---------------------------------------------------------------
+#: the prefix of the backbone's parameters in the model's `state_dict`
+BACKBONE = "backbone."
+
+
 def _offset_grid(h: int, l: int, p: int) -> torch.Tensor:
     """The sampling offsets' radial bias: head k points along angle
     2*pi*k/h, scaled to the unit square, point i at (i + 1) times that."""
@@ -90,10 +96,34 @@ def _offset_grid(h: int, l: int, p: int) -> torch.Tensor:
     return g.reshape(-1).float()
 
 
+def _weight(n: str, z: torch.Tensor, c: Dict, init: Dict) -> torch.Tensor:
+    """The generic rules of `make_weights` for parameter `n`, from its
+    slice `z` of the draw."""
+    shp, dev = z.shape, z.device
+    if n.endswith("sampling_offsets.bias"):
+        h, L = c["nheads"], c["num_feature_levels"]
+        return _offset_grid(h, L, z.numel() // (2 * h * L)).to(dev)
+    if ".class_heads." in n and n.endswith(".bias"):
+        return torch.tensor(init["class_bias"], dtype=torch.float32,
+                            device=dev)
+    if "embed" in n and len(shp) == 2:
+        return z * (c["hidden_dim"] ** -0.5 if "token_embed" in n else 1.0)
+    if len(shp) >= 2:
+        fan_in = int(np.prod(shp[1:]))
+        gain = 2.0 if len(shp) == 4 else 1.0
+        w = z * math.sqrt(gain / fan_in)
+        if ".coords_heads." in n and ".layers.2." in n:
+            w = w * init["coords_head_last_scale"]
+        return w
+    if n.endswith(".bias"):
+        return torch.zeros(shp, device=dev)
+    return torch.ones(shp, device=dev)         # norm and affine scales
+
+
 def make_weights(shapes: Dict[str, torch.Size], c: Dict, init: Dict,
                  seed: int, device) -> Dict[str, torch.Tensor]:
     """Float32 weights by parameter name, made on `device` from `seed` in
-    one draw of normals and scaled leaf by leaf:
+    one draw of normals, in name order, and scaled leaf by leaf:
 
     - convolution and linear kernels: normal with variance gain / fan_in
       (gain 2 for convolutions, 1 for linears), the coordinate heads' last
@@ -101,40 +131,24 @@ def make_weights(shapes: Dict[str, torch.Size], c: Dict, init: Dict,
     - embeddings: normal, std d**-0.5 for tokens, 1 for the rest;
     - biases 0, except the sampling offsets' radial grid and the class
       heads' `init["class_bias"]`;
-    - norm scales 1, the bottlenecks' last affine scale
-      `init["bottleneck_last_scale"]`."""
+    - norm scales 1;
+
+    except where the backbone's module (`reference/backbones/`) gives a
+    backbone parameter's weight by its `init`."""
     names = list(shapes)
     total = sum(int(np.prod(shapes[n])) for n in names)
     g = torch.Generator(device=device).manual_seed(seed)
     flat = torch.randn(total, generator=g, device=device)
+    own = getattr(backbones.module(c["backbone"]), "init", None)
     out, at = {}, 0
-    d, h = c["hidden_dim"], c["nheads"]
     for n in names:
-        shp = shapes[n]
-        k = int(np.prod(shp))
-        z = flat[at:at + k].reshape(shp)
+        k = int(np.prod(shapes[n]))
+        z = flat[at:at + k].reshape(shapes[n])
         at += k
-        if n.endswith("sampling_offsets.bias"):
-            w = _offset_grid(h, c["num_feature_levels"],
-                             k // (2 * h * c["num_feature_levels"]))
-            w = w.to(device)
-        elif ".class_heads." in n and n.endswith(".bias"):
-            w = torch.tensor(init["class_bias"], dtype=torch.float32,
-                             device=device)
-        elif "embed" in n and len(shp) == 2:
-            w = z * (d ** -0.5 if "token_embed" in n else 1.0)
-        elif len(shp) >= 2:
-            fan_in = int(np.prod(shp[1:]))
-            gain = 2.0 if len(shp) == 4 else 1.0
-            w = z * math.sqrt(gain / fan_in)
-            if ".coords_heads." in n and ".layers.2." in n:
-                w = w * init["coords_head_last_scale"]
-        elif n.endswith(".bias"):
-            w = torch.zeros(shp, device=device)
-        elif n.endswith("bn3.scale"):
-            w = torch.full(shp, init["bottleneck_last_scale"], device=device)
-        else:                                   # norm and affine scales
-            w = torch.ones(shp, device=device)
+        w = own(n[len(BACKBONE):], z, init) \
+            if own is not None and n.startswith(BACKBONE) else None
+        if w is None:
+            w = _weight(n, z, c, init)
         out[n] = w.float().contiguous()
     return out
 

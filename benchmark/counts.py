@@ -10,15 +10,24 @@ counted as twice its forward.
 
 Bytes of a row gather (`quad_gather`): each table row read once (at most
 the level's cells, and at most one a gathered row), the int32 indices read
-once and the gathered rows written once. Of its backward (`quad_scatter`):
-the row gradients and indices read once and the whole table of row
-gradients written once; one add per gathered element.
+once and the gathered rows written once.
+
+Of a whole MSDA call (the op `ops.msda.ms_deform_attn` computes, whatever
+implements it), a (batch, head) at a time: each value row (one cell's Dh
+values) read once, at most the level's cells and at most the four corners
+of each sample; the fp32 (x, y) locations and the weights read once; the
+output written once. Its backward also reads the output's gradient once
+and writes the locations' and weights' gradients once and the value's
+gradient whole. FLOPs: 2 Dh (forward) and 4 Dh (backward) a corner, every
+corner counted in range (the shapes do not say which fall outside),
+against the fp32 peak.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Tuple
+
+from reference import backbones
 
 #: NVIDIA H100 SXM, dense, at the 700 W limit (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -35,35 +44,19 @@ def _conv(cin, cout, k, hw_out) -> float:
     return 2.0 * cin * cout * k * k * hw_out
 
 
-def backbone_flops(c: Dict) -> float:
-    S = c["image_size"]
-    blocks = (1, 1, 1, 1) if c["backbone"] == "resnet_tiny" else (3, 4, 6, 3)
-    f = _conv(c["input_channels"], 64, 7, (S // 2) ** 2)
-    size, cin = S // 4, 64
-    for li, (n, w) in enumerate(zip(blocks, (64, 128, 256, 512))):
-        for bi in range(n):
-            stride = 2 if (bi == 0 and li > 0) else 1
-            out = size // stride
-            f += _conv(cin, w, 1, size * size)
-            f += _conv(w, w, 3, out * out)
-            f += _conv(w, 4 * w, 1, out * out)
-            if bi == 0:
-                f += _conv(cin, 4 * w, 1, out * out)
-            size, cin = out, 4 * w
-    return f
-
-
 def image_flops(c: Dict) -> float:
-    """One image through the backbone, the input projections and the
-    deformable encoder."""
+    """One image through the backbone (its module's `flops`), the input
+    projections and the deformable encoder."""
     d, F_, H = c["hidden_dim"], c["dim_feedforward"], c["nheads"]
     sh = _shapes(c)
     S = sum(h * w for h, w in sh)
-    f = backbone_flops(c)
-    for (h, w), cin in zip(sh, (512, 1024, 2048)):
+    backbone = backbones.module(c["backbone"])
+    f = backbone.flops(c)
+    chans = backbone.channels(c)
+    for (h, w), cin in zip(sh, chans):
         f += _conv(cin, d, 1, h * w)
     if len(sh) > 3:
-        f += _conv(2048, d, 3, sh[3][0] * sh[3][1])
+        f += _conv(chans[-1], d, 3, sh[3][0] * sh[3][1])
     hlp = H * len(sh) * c["enc_n_points"]
     per_tok = 2.0 * d * (3 * hlp + 2 * d + 2 * F_)
     return f + c["enc_layers"] * S * per_tok
@@ -150,14 +143,6 @@ def gather_bytes(c: Dict, bh: int, cells: int, rows: int) -> float:
                  + rows * C * _elt(c))
 
 
-def scatter_bytes_flops(c: Dict, bh: int, cells: int, rows: int
-                        ) -> Tuple[float, float]:
-    C = 4 * (c["hidden_dim"] // c["nheads"])
-    table = cells + int(math.isqrt(cells)) + 1
-    return (bh * (rows * C * _elt(c) + rows * 4 + table * C * _elt(c)),
-            float(bh * rows * C))
-
-
 def least_s(nbytes: float, flops: float, peak_flops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / peak_flops)
 
@@ -172,15 +157,6 @@ def encoder_gather_s(c: Dict, images: int) -> float:
         for h, w in _shapes(c))
 
 
-def decoder_gather_s(c: Dict, images: int, queries: int) -> float:
-    """Teacher-forced decoder gathers over `queries` positions."""
-    bh = images * c["nheads"]
-    P = c["dec_n_points"]
-    return c["dec_layers"] * sum(
-        gather_bytes(c, bh, h * w, queries * P) / HBM_BYTES_PER_S
-        for h, w in _shapes(c))
-
-
 def token_gather_s(c: Dict, images: int) -> float:
     """One decode token's gather of one layer: every level's points of
     every (batch, head) from the packed slab in one launch."""
@@ -189,15 +165,33 @@ def token_gather_s(c: Dict, images: int) -> float:
     return gather_bytes(c, images * c["nheads"], S, rows) / HBM_BYTES_PER_S
 
 
-def train_scatter_s(c: Dict, images: int) -> float:
-    """The least time of one micro-step's scatters: the encoder's and the
-    teacher-forced decoder's sites."""
+def msda_bytes_flops(c: Dict, images: int, queries: int, points: int,
+                     backward: bool = False) -> Tuple[float, float]:
+    """(bytes, FLOPs) of one whole-op MSDA call, forward or backward, of
+    `images` images and `queries` queries with `points` points a level."""
+    H = c["nheads"]
+    Dh, e = c["hidden_dim"] // H, _elt(c)
+    bh = images * H
+    samples = queries * points * c["num_feature_levels"]
+    rows = sum(min(h * w, 4 * queries * points) for h, w in _shapes(c))
+    io = samples * (2 * 4 + e)
+    out = queries * Dh * e
+    corners = 4.0 * bh * samples
+    if not backward:
+        return bh * (rows * Dh * e + io + out), 2 * Dh * corners
+    cells = sum(h * w for h, w in _shapes(c))
+    return (bh * (rows * Dh * e + 2 * io + out + cells * Dh * e),
+            4 * Dh * corners)
+
+
+def train_msda_s(c: Dict, images: int) -> float:
+    """The least time of one micro-step's MSDA calls, forward and
+    backward, at every encoder and teacher-forced decoder site."""
     S = sum(h * w for h, w in _shapes(c))
-    bh = images * c["nheads"]
     t = 0.0
     for layers, q, P in ((c["enc_layers"], S, c["enc_n_points"]),
                          (c["dec_layers"], c["seq_len"], c["dec_n_points"])):
-        for h, w in _shapes(c):
-            b, f = scatter_bytes_flops(c, bh, h * w, q * P)
+        for backward in (False, True):
+            b, f = msda_bytes_flops(c, images, q, P, backward)
             t += layers * least_s(b, f, PEAK_FP32_FLOPS)
     return t

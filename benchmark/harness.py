@@ -1,5 +1,7 @@
 """One run of one cell: set-up, the measured window, the traced part (with
-`--trace 1`), the correctness check, and the result line.
+`--trace 1`), the correctness check, and the result line. A traced run
+records the program's own spans from before set-up on; an untraced one,
+whose end-to-end metrics are the cell's, leaves them off.
 
 A cell's driver (`kinds/<kind>.py`, named by its traffic mix) provides
 `setup(run)`, `window(run)`, `traced_units(run)` and `check(run)`; this file
@@ -37,6 +39,10 @@ class Run:
         self.units = {}          # what the window completed
         self.work = {}           # the model work of it (counts.py)
         self.trace: Optional[Dict] = None
+        #: the program's spans and counters (`trace.take()`, None in an
+        #: untraced run) at the window's start (`setup`), at its end
+        #: (`window`) and after the profiled part (`traced`)
+        self.program: Dict = {}
         self.traced_work = {}    # what the traced part completed
         self.weights = None
         self.state: Dict = {}
@@ -78,6 +84,16 @@ class Run:
         return model
 
 
+def _program_trace():
+    """The program's spans and counters (`cape_tpu_torch.trace`), or None
+    for a program without them."""
+    try:
+        from cape_tpu_torch import trace
+    except ImportError:
+        return None
+    return trace
+
+
 def execute(cell_name: str, seed: int, seconds: float, traced: bool,
             device, t_start: float, control: bool = False,
             files: Optional[Dict] = None) -> Dict:
@@ -86,19 +102,30 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool,
     run.t_start = t_start
     run.mark("harness")
     drv = common.kind_driver(run.t["kind"])
-    drv.setup(run)
-    run.sync()
-    setup_s = time.perf_counter() - t_start
-    run.mark("window starts")
-    e2e = drv.window(run)
-    run.sync()
-    peak = (torch.cuda.max_memory_allocated(run.device)
-            if run.device.type == "cuda" else 0)
-    if traced and run.device.type == "cuda":
-        window_spans, run.spans = run.spans, common.Spans()
-        run.trace = device_trace.profile(lambda: drv.traced_units(run),
-                                         run.device)
-        run.spans = window_spans
+    program = _program_trace() if traced else None
+    take = program.take if program else lambda: None
+    if program:
+        program.enable()
+    try:
+        drv.setup(run)
+        run.sync()
+        setup_s = time.perf_counter() - t_start
+        run.mark("window starts")
+        run.program["setup"] = take()
+        e2e = drv.window(run)
+        run.sync()
+        run.program["window"] = take()
+        peak = (torch.cuda.max_memory_allocated(run.device)
+                if run.device.type == "cuda" else 0)
+        if traced and run.device.type == "cuda":
+            window_spans, run.spans = run.spans, common.Spans()
+            run.trace = device_trace.profile(lambda: drv.traced_units(run),
+                                             run.device)
+            run.program["traced"] = take()
+            run.spans = window_spans
+    finally:
+        if program:
+            program.enable(False)
     drv.release(run)
     gc.collect()
     if run.device.type == "cuda":

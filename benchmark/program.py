@@ -1,12 +1,12 @@
 """What the readers of the program's own spans and counters share
 (`cape_tpu_torch.trace`, recorded inside the port).
 
-Counters count in every run. Spans are recorded only where tracing is on
-from before set-up; `run.program` then holds three `trace.take()` results:
-`setup` (taken at the window's start), `window` (at its end) and, after a
-profiled part, `traced`. `spans.py` runs a cell so. A reader returns None
-where its run has nothing to read: no `run.program`, or a program without
-`trace` (an older checkout).
+Counters count in every run. Spans are recorded only in a traced run,
+where `harness.execute` turns tracing on before set-up; `run.program` then
+holds three `trace.take()` results: `setup` (taken at the window's start),
+`window` (at its end) and, after the profiled part on the card, `traced`.
+A reader returns None where its run has nothing to read: an untraced run,
+or a program without `trace` (an older checkout), where those are None.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ def counter(name: str) -> Optional[int]:
 
 
 def taken(run, part: str) -> Optional[dict]:
-    return (getattr(run, "program", None) or {}).get(part)
+    return run.program.get(part)
 
 
 def spans(run, part: str, names: Iterable[str]) -> Optional[List[dict]]:

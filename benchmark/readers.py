@@ -58,21 +58,19 @@ def decode_gather_roofline(run, per: str) -> Optional[float]:
     return _share(bound, secs)
 
 
-def train_roofline(run, kernel: str) -> Optional[float]:
-    """Training: every micro-step gathers (forward) and scatters
-    (backward) at each encoder and teacher-forced decoder site."""
+def msda_roofline(run) -> Optional[float]:
+    """Training: every micro-step's whole-op MSDA calls, forward
+    (`msda_forward_kernel`) and backward (`msda_backward_kernel`), one of
+    each at every encoder and teacher-forced decoder site."""
     if not run.trace:
         return None
     c = run.c
     images = run.t["episodes"] * run.t["queries"]
     micro = run.traced_work.get("updates", 0) * c["accumulation_steps"]
-    n, secs = kernel_time_s(run.trace, kernel + "_kernel")
-    sites = (c["enc_layers"] + c["dec_layers"]) * c["num_feature_levels"]
-    if micro == 0 or n != micro * sites:
+    sites = c["enc_layers"] + c["dec_layers"]
+    launched = [kernel_time_s(run.trace, k) for k in (
+        "msda_forward_kernel", "msda_backward_kernel")]
+    if micro == 0 or any(n != micro * sites for n, _ in launched):
         return None
-    if kernel == "quad_gather":
-        one = counts.encoder_gather_s(c, images) + \
-            counts.decoder_gather_s(c, images, c["seq_len"])
-    else:
-        one = counts.train_scatter_s(c, images)
-    return _share(micro * one, secs)
+    return _share(micro * counts.train_msda_s(c, images),
+                  sum(s for _, s in launched))

@@ -1,11 +1,11 @@
 """Plain float32 CAPE: the benchmark's reference for the port's forward,
 decode and training.
 
-ResNet-50 with frozen affines, 1x1/3x3 input projections with GroupNorm,
-the deformable encoder with multi-scale deformable attention written as
-`F.grid_sample` per level (bilinear, zero padding, half-pixel centres), the
-geometric or the legacy support encoder, and the v1 decoder run
-teacher-forced under a causal mask. Parameter names follow the program's
+The backbone the configuration names (`reference/backbones/`), 1x1/3x3
+input projections with GroupNorm, the deformable encoder with multi-scale
+deformable attention written as `F.grid_sample` per level (bilinear, zero
+padding, half-pixel centres), the geometric or the legacy support encoder,
+and the v1 decoder run teacher-forced under a causal mask. Parameter names follow the program's
 `state_dict`, so that the benchmark hands both the same weights. Nothing
 here imports the program: it is written from the model's equations.
 
@@ -23,11 +23,13 @@ masks wherever the same sites are met in the same order.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from reference import backbones
 
 NEG_INF = -1e9
 
@@ -66,64 +68,6 @@ def dropout(x, p: float, g: Optional[torch.Generator]):
     keep = 1.0 - p
     mask = torch.rand(x.shape, generator=g, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
-class Affine(nn.Module):
-    def __init__(self, c: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-
-    def forward(self, x):
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
-
-
-class Bottleneck(nn.Module):
-    def __init__(self, cin: int, width: int, stride: int, down: bool):
-        super().__init__()
-        self.conv1 = Conv2d(cin, width, 1, bias=False)
-        self.bn1 = Affine(width)
-        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = Affine(width)
-        self.conv3 = Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = Affine(width * 4)
-        if down:
-            self.downsample_conv = Conv2d(cin, width * 4, 1, stride,
-                                          bias=False)
-            self.downsample_bn = Affine(width * 4)
-        else:
-            self.downsample_conv = self.downsample_bn = None
-
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idt = x if self.downsample_conv is None else \
-            self.downsample_bn(self.downsample_conv(x))
-        return F.relu(out + idt)
-
-
-class ResNet(nn.Module):
-    def __init__(self, blocks: Sequence[int], cin: int = 3):
-        super().__init__()
-        self.conv1 = Conv2d(cin, 64, 7, 2, 3, bias=False)
-        self.bn1 = Affine(64)
-        c = 64
-        for li, (n, w) in enumerate(zip(blocks, (64, 128, 256, 512))):
-            stride = 1 if li == 0 else 2
-            layer = []
-            for bi in range(n):
-                layer.append(Bottleneck(c, w, stride if bi == 0 else 1,
-                                        bi == 0))
-                c = w * 4
-            setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
-
-    def forward(self, x):
-        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
-        x = self.layer1(x)
-        c3 = self.layer2(x)
-        c4 = self.layer3(c3)
-        return c3, c4, self.layer4(c4)
 
 
 class MHA(nn.Module):
@@ -481,13 +425,14 @@ class RefCAPE(nn.Module):
         super().__init__()
         self.c = c
         d = c["hidden_dim"]
-        blocks = (1, 1, 1, 1) if c["backbone"] == "resnet_tiny" else \
-            (3, 4, 6, 3)
-        self.backbone = ResNet(blocks, c["input_channels"])
+        backbone = backbones.module(c["backbone"])
+        self.backbone = backbone.build(c)
+        chans = backbone.channels(c)
         self.input_projs = nn.ModuleList(
             [nn.Sequential(Conv2d(ch, d, 1), nn.GroupNorm(32, d))
-             for ch in (512, 1024, 2048)]
-            + [nn.Sequential(Conv2d(2048, d, 3, 2, 1), nn.GroupNorm(32, d))])
+             for ch in chans]
+            + [nn.Sequential(Conv2d(chans[-1], d, 3, 2, 1),
+                             nn.GroupNorm(32, d))])
         self.level_embed = nn.Parameter(torch.zeros(c["num_feature_levels"],
                                                     d))
         self.encoder = nn.Module()

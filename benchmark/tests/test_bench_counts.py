@@ -1,6 +1,7 @@
 """`counts.py` against `torch.utils.flop_counter.FlopCounterMode` over the
 plain reference at the program's test size, and its byte counts against
-the arithmetic spelled out."""
+the arithmetic spelled out; the training MSDA roofline's reading of the
+trace."""
 
 import pytest
 import torch
@@ -9,6 +10,7 @@ from torch.utils.flop_counter import FlopCounterMode
 import check as checks
 import common
 import counts
+import readers
 import tiny
 import traffic
 
@@ -92,6 +94,63 @@ def test_gather_bytes_spelled_out():
     # more gathered rows than cells: each cell read once
     assert counts.gather_bytes(c, 1, 8, 100) == 8 * C * 2 + 100 * 4 + \
         100 * C * 2
-    b, f = counts.scatter_bytes_flops(c, 2, 64, 10)
-    assert b == 2 * (10 * C * 2 + 10 * 4 + (64 + 8 + 1) * C * 2)
-    assert f == 2 * 10 * C
+
+
+def test_msda_bytes_and_flops_by_hand():
+    """The whole op at the tiny size in bf16: 4 heads of Dh 16, levels of
+    8x8, 4x4, 2x2 and 1x1 cells (85), 2 images, 3 queries, 2 points a
+    level: 24 samples and 96 corners a (batch, head), 8 of those."""
+    c = dict(tiny.files("cape-geo.train-update")["config"]["cape"],
+             bf16=True)
+    # value rows: each level's cells, at most 4 corners x 3 x 2 = 24
+    rows = 24 + 16 + 4 + 1
+    io = 24 * (2 * 4 + 2)        # fp32 (x, y) and a bf16 weight a sample
+    out = 3 * 16 * 2
+    fwd = counts.msda_bytes_flops(c, 2, 3, 2)
+    assert fwd == (8 * (rows * 16 * 2 + io + out), 2 * 16 * 96 * 8)
+    assert fwd == (14208, 24576)
+    # the gradient of the output read, the locations' and weights' written,
+    # the value's written whole (85 rows)
+    bwd = counts.msda_bytes_flops(c, 2, 3, 2, backward=True)
+    assert bwd == (8 * (rows * 16 * 2 + 2 * io + out + 85 * 16 * 2),
+                   4 * 16 * 96 * 8)
+    assert bwd == (37888, 49152)
+
+
+def test_train_msda_s_sums_every_site():
+    c = dict(tiny.files("cape-geo.train-update")["config"]["cape"],
+             bf16=True)
+    S = 85
+    want = 0.0
+    for layers, q, P in ((c["enc_layers"], S, c["enc_n_points"]),
+                         (c["dec_layers"], c["seq_len"], c["dec_n_points"])):
+        for bwd in (False, True):
+            b, f = counts.msda_bytes_flops(c, 4, q, P, bwd)
+            want += layers * max(b / counts.HBM_BYTES_PER_S,
+                                 f / counts.PEAK_FP32_FLOPS)
+    assert counts.train_msda_s(c, 4) == pytest.approx(want, rel=1e-12)
+
+
+class _Run:
+    def __init__(self, launches, updates=1):
+        f = tiny.files("cape-geo.train-update")
+        self.c, self.t = f["config"]["cape"], f["traffic"]
+        self.traced_work = {"updates": updates}
+        self.trace = {"events": [
+            (f"void msda_{k}_kernel<true>(Args)", 0.0, 1e3)
+            for k, n in launches.items() for _ in range(n)]}
+
+
+def test_msda_roofline_reads_the_whole_ops_kernels():
+    """One traced update of 2 micro-steps at 2 + 2 sites: 8 launches of
+    each kernel, 1 ms each; any other count reads nothing."""
+    run = _Run({"forward": 8, "backward": 8})
+    c = run.c
+    images = run.t["episodes"] * run.t["queries"]
+    got = readers.msda_roofline(run)
+    assert got == pytest.approx(
+        100 * 2 * counts.train_msda_s(c, images) / 16e-3, rel=1e-12)
+    assert 0 < got <= 100
+    assert readers.msda_roofline(_Run({"forward": 8, "backward": 7})) is None
+    assert readers.msda_roofline(_Run({"forward": 8, "backward": 8},
+                                      updates=2)) is None
