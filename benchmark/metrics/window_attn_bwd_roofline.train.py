@@ -1,0 +1,9 @@
+"""The window-attention backward kernels' least time at the 24 sites of
+every traced micro-step over their traced time, %
+(`swin_readers.roofline`)."""
+
+import swin_readers
+
+
+def read(run):
+    return swin_readers.roofline(run, "bwd")

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 
 from ..config import CAPEConfig
+from ..models.cape import BACKBONES
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -68,7 +69,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stopping_patience", type=int, default=d.early_stopping_patience)
     p.add_argument("--clip_max_norm", type=float, default=d.clip_max_norm)
     # model
-    p.add_argument("--backbone", default=d.backbone)
+    p.add_argument("--backbone", default=d.backbone,
+                   help=f"one of {', '.join(BACKBONES)}")
     p.add_argument("--input_channels", type=int, default=d.input_channels)
     p.add_argument("--image_size", type=int, default=d.image_size)
     p.add_argument("--image_norm", action="store_true", default=d.image_norm)

@@ -111,6 +111,8 @@ class ResNet50(nn.Module):
                 cin = width * 4
             layers.append(nn.Sequential(*blocks))
         self.layer1, self.layer2, self.layer3, self.layer4 = layers
+        #: the returned maps' channels
+        self.channels = tuple(4 * w for w in widths[1:])
 
     def init_weights(self, g: torch.Generator) -> None:
         he_normal_(self.conv1.weight, g)

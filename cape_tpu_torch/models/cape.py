@@ -2,6 +2,9 @@
 decoder, plus the autoregressive decode loop: the port of
 `cape_tpu.models.cape`.
 
+- The backbone is the one `cfg.backbone` names (`BACKBONES`): ResNet-50
+  (`models.backbone`) or DINO-4scale's Swin-L (`models.swin`), each with
+  a test copy; the input projections take its channels.
 - One module, one parameter set, built and initialised on an explicit
   device from an explicit `torch.Generator` (seeded by `cfg.seed` when none
   is given).
@@ -28,6 +31,7 @@ decoder, plus the autoregressive decode loop: the port of
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,6 +49,7 @@ from .deformable import DeformableEncoder
 from .layers import default_init_, normal_, uniform_, xavier_uniform_, zeros_
 from .position_encoding import image_sine_pe_2d
 from .support_encoder import GeometricSupportEncoder, SupportPoseGraphEncoder
+from .swin import SWIN, SwinTransformer
 
 
 def level_shapes(image_size: int, num_levels: int,
@@ -55,6 +60,26 @@ def level_shapes(image_size: int, num_levels: int,
     strides = [8, 16, 16, 32] if dilation else [8, 16, 32, 64]
     return tuple((image_size // s, image_size // s)
                  for s in strides[:num_levels])
+
+
+#: the backbones `cfg.backbone` names: ResNet-50 and its one-block test
+#: copy (`models.backbone`), DINO's Swin-L and its test copy (`models.swin`)
+BACKBONES = ("resnet50", "resnet_tiny") + tuple(SWIN)
+
+
+def build_backbone(cfg: CAPEConfig) -> nn.Module:
+    """The backbone `cfg.backbone` names (its `channels` those of the
+    stride-8/16/32 maps it returns); another name raises."""
+    if cfg.backbone in SWIN:
+        if cfg.dilation:
+            raise ValueError(f"backbone={cfg.backbone!r}: DC5 dilation is "
+                             "ResNet-50's only")
+        return SwinTransformer(cfg.backbone, cfg.input_channels)
+    if cfg.backbone in ("resnet50", "resnet_tiny"):
+        blocks = (1, 1, 1, 1) if cfg.backbone == "resnet_tiny" \
+            else (3, 4, 6, 3)
+        return ResNet50(cfg.input_channels, blocks, cfg.dilation)
+    raise ValueError(f"backbone={cfg.backbone!r}: one of {BACKBONES}")
 
 
 def _unsupported(cfg: CAPEConfig) -> Optional[str]:
@@ -79,15 +104,15 @@ class CAPE(nn.Module):
             raise ValueError(why)
         device = resolve_device(device)
         self.cfg = cfg
-        blocks = (1, 1, 1, 1) if cfg.backbone == "resnet_tiny" else (3, 4, 6, 3)
-        self.backbone = ResNet50(cfg.input_channels, blocks, cfg.dilation)
+        self.backbone = build_backbone(cfg)
+        chans = self.backbone.channels
         d = cfg.hidden_dim
         # 1x1 conv + GroupNorm(32) per backbone level; extra stride-2 3x3
-        # level from layer4 (`roomformer_v2.py:186-214`)
+        # level from the last (`roomformer_v2.py:186-214`)
         self.input_projs = nn.ModuleList(
             [nn.Sequential(nn.Conv2d(c, d, 1), nn.GroupNorm(32, d, eps=1e-5))
-             for c in (512, 1024, 2048)]
-            + [nn.Sequential(nn.Conv2d(2048, d, 3, stride=2, padding=1),
+             for c in chans]
+            + [nn.Sequential(nn.Conv2d(chans[-1], d, 3, stride=2, padding=1),
                              nn.GroupNorm(32, d, eps=1e-5))])
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         if self.learned_pe:
@@ -219,11 +244,22 @@ class CAPE(nn.Module):
                 mean, std = self._imagenet_stats(images.device)
                 images = (images - mean) / std
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        feats = self.backbone(x)
+        with self._backbone_span(x.device):
+            feats = self.backbone(x)
         srcs = [self.input_projs[i](feats[i]) for i in range(3)]
         if self.cfg.num_feature_levels > 3:
             srcs.append(self.input_projs[3](feats[-1]))
         return self.encode_features(srcs, generator)
+
+    @staticmethod
+    def _backbone_span(device):
+        """The `backbone` device span, where tracing is on and the stream
+        is not being captured into a CUDA graph (a device span cannot be
+        recorded there)."""
+        if not trace.enabled() or (device.type == "cuda" and
+                                   torch.cuda.is_current_stream_capturing()):
+            return contextlib.nullcontext()
+        return trace.device_span("backbone", device)
 
     def encode_features(self, srcs,
                         generator: Optional[torch.Generator] = None

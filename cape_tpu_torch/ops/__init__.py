@@ -1,7 +1,8 @@
 """Kernels of the serving and training paths and the MSDA core around them.
 
 `gather.quad_gather` (with its backward `gather.quad_scatter`),
-`msda_kernel.msda_forward` and `msda_kernel.msda_backward` launch
+`msda_kernel.msda_forward`, `msda_kernel.msda_backward` and the Swin
+backbone's `window_attn.window_attention` (forward and backward) launch
 hand-written CUDA kernels (`csrc/`) on CUDA tensors and run their plain
 PyTorch versions on CPU tensors; `_build` compiles the kernels at first
 use.
@@ -16,6 +17,7 @@ from .msda import (
     precompute_quad_slab,
 )
 from .msda_kernel import ms_deform_attn_pallas, msda_backward, msda_forward
+from .window_attn import window_attention
 
 
 
@@ -23,7 +25,7 @@ def launch_counters():
     """Every kernel's launch counter: name -> (its wrapper, the wrapper's
     counter attribute). A wrapper adds one where it launches its kernel;
     a replayed CUDA graph adds the launches it holds (`graphs`)."""
-    from . import gather, msda_fused, msda_kernel
+    from . import gather, msda_fused, msda_kernel, window_attn
 
     return {"quad_gather": (gather.quad_gather, "launches"),
             "quad_scatter": (gather.quad_scatter, "launches"),
@@ -33,7 +35,11 @@ def launch_counters():
             "fused_bwd": (msda_fused.fused_level_sample, "bwd_launches"),
             "quadfused_fwd": (msda_fused.quadfused_level_sample, "launches"),
             "quadfused_bwd": (msda_fused.quadfused_level_sample,
-                              "bwd_launches")}
+                              "bwd_launches"),
+            "window_attn_fwd": (window_attn.window_attn_forward,
+                                "launches"),
+            "window_attn_bwd": (window_attn.window_attn_backward,
+                                "launches")}
 
 
 __all__ = [
@@ -42,5 +48,5 @@ __all__ = [
     "ms_deform_attn",
     "ms_deform_attn_core", "ms_deform_attn_core_naive",
     "ms_deform_attn_core_prequad", "precompute_quad_slab",
-    "ms_deform_attn_pallas",
+    "ms_deform_attn_pallas", "window_attention",
 ]

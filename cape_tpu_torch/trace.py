@@ -29,7 +29,16 @@ off:
   between two chunks of token bodies;
 - `msda.whole_op`: MSDA calls that took the whole-op autograd function
   (`ops.msda.ms_deform_attn`); a captured step counts its sites once, at
-  the capture.
+  the capture;
+- `swin.window_attn`: Swin window-attention calls that took the kernel
+  route (`ops.window_attn.window_attention` on CUDA tensors); counted
+  like `msda.whole_op`.
+
+One device span sits in the model: `backbone`, around the backbone's call
+in `CAPE.encode_image`. It opens only where the stream is not being
+captured (a device span cannot be recorded there), so it times eager
+forwards (the CPU, an eager training route, the validation loss) and
+none inside the captured decode or micro-step.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ loop's), the same per-epoch `episode_batches` on one parent generator and
 the same validation generator. Where the JAX loop initialises the
 parameters inside, this loop trains the caller's module with its weights.
 `cfg.resnet_weights` is loaded into it before the train state is built,
-since the optimizer freezes the backbone affines whenever it is set.
+since the optimizer freezes the backbone affines whenever it is set; it
+is a torchvision ResNet-50, so with another backbone the loop raises.
 
 Dropout draws from one `torch.Generator` on the model's device, seeded by
 `cfg.seed`, in place of the JAX loop's split keys.
@@ -63,6 +64,7 @@ from ..data.episodic import (EpisodicSampler, episode_batches,
 from ..data.mp100 import MP100Dataset
 from ..data.prefetch import prefetch, stack_batches, to_device
 from ..eval.evaluate import evaluate_cape
+from ..models.backbone import ResNet50
 from ..parallel import (allgather_object, host_episode_slice, host_rng,
                         is_main, local_episode_count, process_count,
                         process_index, rank_seed, replicate)
@@ -99,6 +101,10 @@ def train_loop(
     validation walls in seconds) and the `TrainState`. Across processes
     every rank calls it with the same arguments (see the module
     docstring)."""
+    if cfg.resnet_weights and not isinstance(model.backbone, ResNet50):
+        raise ValueError(f"resnet_weights={cfg.resnet_weights!r} is a "
+                         f"torchvision ResNet-50; the backbone is "
+                         f"{cfg.backbone!r}")
     device = model.device
     multi = process_count() > 1
     main = is_main()

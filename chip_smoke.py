@@ -26,7 +26,10 @@ and exits non-zero at the first phase that fails:
    the decode step; the two fused backwards at the encoder's four levels
    and the decoder's level 0, the same two index sets, with dw4 exactly 0
    at every corner outside the slab and a strided slab bit-equal to its
-   copy;
+   copy; and the Swin backbone's window-attention kernels
+   (`phase_window_attn`) at Swin-L's four stages at the train cell's batch,
+   shifted and not: forward and every gradient against the plain version,
+   reruns bit-equal, times beside `scaled_dot_product_attention`'s;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
@@ -49,7 +52,11 @@ and exits non-zero at the first phase that fails:
    `CAPE_DECODE_PREQUAD=0`; launch counts against the decode steps, and
    the per-batch split of the wall (waiting for the batch, decode, host
    scoring) with episodes per second;
-7. the training path at the flagship width: `make_train_step` takes 8
+7. DINO's Swin-L on the main paths (`phase_swin`, before the flagship's
+   training): 8 captured micro-steps at the train cell's batch, 24 + 24
+   window-attention and 12 + 12 MSDA launches each, every table and qkv
+   bias moved, then a request of 8 with 24 forward launches; then
+   the training path at the flagship width: `make_train_step` takes 8
    micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
    12 `msda_forward` and 12 `msda_backward` launches each (every MSDA
    site through the whole-op kernels); the forward/backward/optimizer
@@ -4156,6 +4163,280 @@ def phase_workflows(torch, np, card, root):
           f"({card})", flush=True)
 
 
+# ----------------------------------------------------------------------
+#: Swin-L's four stages at the `cape-swinl.train-update` micro-batch (4
+#: images of 512 px): (H, W, C, heads) of each stage's window attention
+SWIN_STAGES = ((128, 128, 192, 6), (64, 64, 384, 12), (32, 32, 768, 24),
+               (16, 16, 1536, 48))
+SWIN_BATCH = 4
+
+
+def _window_inputs(torch, g, B, H, W, C, heads):
+    """bf16 (qkv, bias, table, dout) of one site: the projection's output
+    and the cotangent N(0, 1), the bias N(0, 0.3), the table N(0, 0.02)."""
+    from cape_tpu_torch.ops.window_attn import BINS
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+
+    return (rand(B, H, W, 3 * C), rand(3 * C, std=0.3),
+            rand(BINS, heads, std=0.02), rand(B, H, W, C))
+
+
+def _window_bound_ms(B, H, W, C, heads, backward):
+    """The least time of one site (the benchmark's count: each input and
+    output byte once over the real tokens, the log-sum-exps; the two
+    products over the padded windows forward, four backward, bf16 peak)."""
+    from cape_tpu_torch.ops.window_attn import WINDOW, padded
+
+    npad = B * padded(H) * padded(W)
+    nbytes = B * H * W * (8 if backward else 4) * C * 2 + npad * heads * 4
+    flops = 2 * 2.0 * npad * WINDOW * WINDOW * C * (2 if backward else 1)
+    return max(nbytes / HBM_BYTES_PER_S * 1e3, flops / 989e12 * 1e3)
+
+
+def _gap(got, want):
+    """The largest gap over the largest magnitude of the fp32 version."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def phase_window_attn(torch, card):
+    """The window-attention kernels (csrc/window_attn.cu) at Swin-L's four
+    stage shapes at the train cell's batch, unshifted and shifted: forward
+    and every gradient against the plain version (fp32 from the same bf16
+    inputs, autograd), reruns bit-equal, and the times of the kernels, of
+    the plain version and of `scaled_dot_product_attention` over the
+    partitioned windows with a float mask (the yardstick only: the port
+    never calls it). Returns the two entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from cape_tpu_torch.ops import _build
+    from cape_tpu_torch.ops import window_attn as wa
+
+    for line in _build.build_log("window_attn").splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            print(f"  window_attn: {line.strip()}", flush=True)
+    # bf16 kernels against fp32 plain from the same bf16 inputs, each gap
+    # over the fp32 tensor's largest magnitude: the output rounds the
+    # probabilities (to bf16, before the product with v) and itself once,
+    # 2^-9 of its largest value each; the gradients also take P, dS and dO
+    # as bf16 operands; the table's and the bias's gradients sum many
+    # rounded terms that cancel (a row of dS sums to 0). Measured on an
+    # H100 at the four stages: out <= 0.0027, gradients <= 0.0049
+    tols = {"out": 2 ** -7, "grad_qkv": 2 ** -6, "grad_bias": 2 ** -6,
+            "grad_table": 2 ** -6}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = dict.fromkeys(tols, 0.0)
+    entries = {"fwd": [], "bwd": []}
+    for H, W, C, heads in SWIN_STAGES:
+        for shift in (0, 6):
+            qkv, bias, table, dout = _window_inputs(torch, g, SWIN_BATCH, H,
+                                                    W, C, heads)
+            out, lse = wa.window_attn_forward(qkv, bias, table, heads, shift)
+            grads = wa.window_attn_backward(qkv, bias, table, heads, shift,
+                                            out, lse, dout)
+            out2, lse2 = wa.window_attn_forward(qkv, bias, table, heads,
+                                                shift)
+            grads2 = wa.window_attn_backward(qkv, bias, table, heads, shift,
+                                             out2, lse2, dout)
+            check(torch.equal(out, out2) and torch.equal(lse, lse2)
+                  and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                  f"window attention at {H} x {W}, shift {shift}: a rerun "
+                  "gave other bits")
+            leaves = [t.detach().float().requires_grad_()
+                      for t in (qkv, bias, table)]
+            want = wa.window_attention_plain(*leaves, heads, shift)
+            want_grads = torch.autograd.grad(want, leaves, dout.float())
+            gaps = {"out": _gap(out, want)}
+            for name, got, w in zip(("grad_qkv", "grad_bias", "grad_table"),
+                                    grads, want_grads):
+                gaps[name] = _gap(got, w)
+            label = f"{H} x {W} x {C}, {heads} heads, shift {shift}"
+            print(f"window attention [{label}]: gaps over the largest "
+                  f"magnitude {json.dumps(gaps)} (tolerances "
+                  f"{json.dumps(tols)})", flush=True)
+            for k, v in gaps.items():
+                check(v <= tols[k], f"window attention [{label}]: {k} gap "
+                      f"{v:.3e} above {tols[k]:.3e}")
+                worst[k] = max(worst[k], v)
+            del want, want_grads, leaves, out2, lse2, grads2
+            # times: the kernels, the plain version, and the library's
+            # attention over the windows with a float mask
+            fwd_args = (qkv, bias, table, heads, shift)
+            t_f = {"shape": label}
+            t_f["ms"], t_f["device_ms"] = both_ms(
+                torch, lambda: wa.window_attn_forward(*fwd_args))
+            t_b = {"shape": label}
+            t_b["ms"], t_b["device_ms"] = both_ms(
+                torch, lambda: wa.window_attn_backward(
+                    *fwd_args, out, lse, dout))
+            t_f["bound_ms"] = _window_bound_ms(SWIN_BATCH, H, W, C, heads,
+                                               False)
+            t_b["bound_ms"] = _window_bound_ms(SWIN_BATCH, H, W, C, heads,
+                                               True)
+            leaves = [t.detach().float().requires_grad_()
+                      for t in (qkv, bias, table)]
+
+            def plain_fwd():
+                with torch.no_grad():
+                    wa.window_attention_plain(*leaves, heads, shift)
+
+            def plain_bwd():
+                y = wa.window_attention_plain(*leaves, heads, shift)
+                torch.autograd.grad(y, leaves, dout.float())
+
+            t_f["plain_ms"] = cuda_ms(torch, plain_fwd, iters=3, warmup=1)
+            t_b["plain_ms"] = cuda_ms(torch, plain_bwd, iters=3,
+                                      warmup=1) - t_f["plain_ms"]
+            del leaves
+            q, k, v, mask = _windows_for_sdpa(torch, wa, qkv, bias, table,
+                                              heads, shift)
+            t_f["library_ms"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            y = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+            dy = torch.randn_like(y)
+            t_b["library_ms"] = cuda_ms(
+                torch, lambda: torch.autograd.grad(y, (ql, kl, vl), dy,
+                                                   retain_graph=True))
+            for t in (t_f, t_b):
+                t["bound_share"] = t["bound_ms"] / t["device_ms"]
+            print(f"window_attn_forward [{label}] {json.dumps(t_f)} "
+                  f"({card})", flush=True)
+            print(f"window_attn_backward [{label}] {json.dumps(t_b)} "
+                  f"({card})", flush=True)
+            entries["fwd"].append(t_f)
+            entries["bwd"].append(t_b)
+            del q, k, v, mask, ql, kl, vl, y, dy, out, lse, grads
+    print(f"window attention: worst gaps {json.dumps(worst)}", flush=True)
+    out = []
+    for part, name in (("fwd", "window_attn_fwd"), ("bwd", "window_attn_bwd")):
+        ts = entries[part]
+        out.append({"name": name, "route": "cuda",
+                    "source": "cape_tpu_torch/ops/csrc/window_attn.cu",
+                    "replaces": None, "launches": 0,
+                    "max_gap": worst["out"] if part == "fwd" else
+                    max(worst[k] for k in tols if k != "out"),
+                    "sites": {t["shape"]: {k: t[k] for k in (
+                        "device_ms", "ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_share")} for t in ts},
+                    "device_ms": sum(t["device_ms"] for t in ts),
+                    "bound_ms": sum(t["bound_ms"] for t in ts),
+                    "plain_ms": sum(t["plain_ms"] for t in ts),
+                    "library_ms": sum(t["library_ms"] for t in ts)})
+    return out
+
+
+def _windows_for_sdpa(torch, wa, qkv, bias, table, heads, shift):
+    """q, k, v (B * nW, heads, 144, 32) bf16 of the partitioned windows and
+    the float mask (B * nW, heads, 144, 144: the bias, plus the region mask
+    where shifted) with which `scaled_dot_product_attention` computes the
+    same scores."""
+    B, H, W, C3 = qkv.shape
+    src, bins, region = (t.to(qkv.device) for t in wa._window_maps(H, W,
+                                                                   shift))
+    nW, N = src.shape
+    rows = qkv.reshape(B, H * W, C3)
+    tok = rows[:, src.clamp(min=0).reshape(-1)].reshape(B, nW, N, C3)
+    tok = torch.where((src >= 0)[None, :, :, None], tok,
+                      bias.expand(B, nW, N, C3))
+    q, k, v = tok.reshape(B * nW, N, 3, heads, C3 // 3 // heads).permute(
+        2, 0, 3, 1, 4).contiguous().unbind(0)
+    mask = table.float()[bins].permute(2, 0, 1)[None, None]
+    if shift:
+        mask = mask + ((region[:, :, None] != region[:, None, :]).float()
+                       * wa.MASK_FILL)[None, :, None]
+    mask = mask.expand(B, nW, heads, N, N).reshape(B * nW, heads, N, N)
+    return q, k, v, mask.to(qkv.dtype).contiguous()
+
+
+def phase_swin(torch, np, card):
+    """DINO's Swin-L on the main paths: one real update of 4 micro-steps of
+    4 images at 512 px on the captured route (24 window-attention forward
+    and 24 backward launches a micro-step, every master moved), then a
+    served request of 8 images (24 forward launches a request, no
+    backward). Returns the two paths' launch counts."""
+    from cape_tpu_torch import CAPE, CAPEConfig, CAPEPredictor
+    from cape_tpu_torch import graphs
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = CAPEConfig(backbone="swin_L_384_22k")
+    sites = 24
+    t0 = time.perf_counter()
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Swin-L model built in {time.perf_counter() - t0:.3f} s "
+          f"({n_params} parameters)", flush=True)
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    print(graphs.describe_step_route(model, cfg), flush=True)
+    rng = np.random.default_rng(4)
+    batches = [_train_batch(np, cfg, rng) for _ in range(2 * cfg.accumulation_steps)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [m.clone() for m in state.opt_state.masters]
+    times, train_counts = [], None
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+        m = {k: v.item() for k, v in metrics.items()}
+        print(f"Swin-L micro-step {i + 1}: {times[-1]:.3f} ms, total "
+              f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, launches "
+              f"{counts}", flush=True)
+        check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              "Swin-L: non-finite or zero metrics")
+        _check_counts(counts, f"Swin-L micro-step {i + 1}",
+                      msda_forward=12, msda_backward=12,
+                      window_attn_fwd=sites, window_attn_bwd=sites)
+        train_counts = counts
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(before, state.opt_state.masters))
+    # the kernels' own gradients: every table and every qkv bias moves
+    # (a norm scale near 1 may not, early in the warm-up)
+    still = [n for n, a, b in zip(state.opt_state.names, before,
+                                  state.opt_state.masters)
+             if torch.equal(a, b) and n.endswith(
+                 ("relative_position_bias_table", "attn.qkv.bias"))]
+    print(f"Swin-L: {moved} of {len(before)} masters moved over 2 updates; "
+          f"tables and qkv biases unmoved {still[:8]}; ms per micro-step "
+          f"{[round(t, 3) for t in times]}; peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})", flush=True)
+    check(not still and moved > 0.5 * len(before),
+          f"Swin-L: {moved} masters moved; unmoved {still[:8]}")
+    del state, step, before
+    graphs.clear(model)
+    model.eval()
+    pred = CAPEPredictor(cfg, model, batch_size=8)
+    proto = np.asarray(PROTO_17, np.float32)
+    imgs, boxes = _requests(np, 2, 8)[1]
+    pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_results(np, res, len(imgs), len(PROTO_17))
+    serve_counts = _counts()
+    print(f"Swin-L request of 8: {ms:.3f} ms, launches {serve_counts} "
+          f"({card})", flush=True)
+    check(serve_counts["window_attn_fwd"] == sites
+          and serve_counts["window_attn_bwd"] == 0,
+          f"Swin-L request: {serve_counts}")
+    del pred, model
+    torch.cuda.empty_cache()
+    return {"window_attn_fwd": train_counts["window_attn_fwd"],
+            "window_attn_bwd": train_counts["window_attn_bwd"]}, serve_counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4191,7 +4472,7 @@ def main() -> int:
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
-        kernels = phase_kernels(torch, card)
+        kernels = phase_kernels(torch, card) + phase_window_attn(torch, card)
         model, default_counts, pallas_counts, fused_counts = phase_serving(
             torch, np, card)
         phase_graphs(torch, np, card, model)
@@ -4199,6 +4480,7 @@ def main() -> int:
             torch, np, model, card, tree.name)
         sized = os.path.join(tree.name, "sized")
         phase_eval_sized(torch, np, model, card, sized)
+        swin_counts, swin_serve_counts = phase_swin(torch, np, card)
         train_model, train_counts = phase_training(torch, np, card)
         phase_training_pallas(torch, np, train_model, card)
         fused_bwd_counts = phase_training_fused(torch, np, train_model, card)
@@ -4234,7 +4516,8 @@ def main() -> int:
                 "fused_fwd": fused_counts["fused_fwd"],
                 "quadfused_fwd": fused_counts["quadfused_fwd"],
                 "fused_bwd": fused_bwd_counts["fused"],
-                "quadfused_bwd": fused_bwd_counts["quadfused"]}
+                "quadfused_bwd": fused_bwd_counts["quadfused"],
+                **swin_counts}
     # and the evaluation path's runs (default path, then `fused`), and the
     # training entry point's (its run under auto, then its `fused` epoch)
     eval_launches = {"quad_gather": eval_counts["quad_gather"],

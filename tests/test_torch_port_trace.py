@@ -216,7 +216,9 @@ def tiny():
 
 
 def _decode_names(steps: int, reads: int):
-    names = ["decode", "decode.inputs", "decode.prologue"]
+    # the CPU's prologue runs eagerly, so `CAPE.encode_image` opens its
+    # `backbone` device span inside it
+    names = ["decode", "decode.inputs", "decode.prologue", "backbone"]
     for i in range(steps):
         names.append("decode.chunk")
         if i < reads:
