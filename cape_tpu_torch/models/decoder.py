@@ -13,9 +13,13 @@ sigmoid(learned query_embed), both in fp32.
 Two paths share one parameter set: `forward_train`, the teacher-forced
 full sequence under an additive causal mask (training, with dropout when a
 generator is passed), and `forward_step`, one token against the KV caches
-(serving). With `CAPE_DECODE_PREQUAD=0` the decode keeps each layer's
-plain projected value instead of its quad slab and every step runs
-`ms_deform_attn_core`, where every MSDA formulation is selectable.
+(serving). On the card a flagship layer's step is one hand-written kernel
+(`ops.decode_step.layer_step`), wherever `ops.decode_step.refusal` finds
+nothing against it; every other step runs the chain of modules
+(`ops.decode_step.layer_step_plain`). With `CAPE_DECODE_PREQUAD=0` the
+decode keeps each layer's plain projected value instead of its quad slab
+and every step runs `ms_deform_attn_core`, where every MSDA formulation is
+selectable.
 
 `Decoder(layer_type=...)` also builds the experimental layers v2-v6 of
 `decoder_variants.py`, and the v1 options `attn_concat_src` (the raw
@@ -35,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import decode_step
 from .attention import MultiHeadAttention
 from .decoder_variants import (DecoderLayerV2, DecoderLayerV3,
                                DecoderLayerVC, _prefix_mask)
@@ -452,14 +457,14 @@ class Decoder(nn.Module):
         anchor = self.anchors().index_select(0, pos_index.reshape(1))  # (1, 2)
         ref = anchor[None].expand(B, 1, 2)
 
-        for lid, layer in enumerate(self.layers):
-            query_pos = self._query_pos(ref)
-            ref_input = ref[:, :, None, :].expand(B, 1, self.n_levels, 2)
+        for lid in range(self.num_layers):
+            # one kernel a layer where `decode_step.refusal` finds none
             sk, sv = support_kvs[lid]
-            x, _ = layer.forward_step(
-                x, query_pos, ref_input, mem_values[lid], spatial_shapes,
-                caches[lid], pos_index, sk, sv, support_mask)
-            ref = self._refine(lid, x, ref)
+            step = decode_step.layer_step if decode_step.refusal(
+                self, x, mem_values[lid], caches[lid], sk) is None \
+                else decode_step.layer_step_plain
+            x, ref = step(self, lid, x, ref, mem_values[lid], spatial_shapes,
+                          caches[lid], pos_index, sk, sv, support_mask)
         # only the last layer's class head is read at decode time
         logits = self.class_heads[-1](x)
         return logits, ref, caches

@@ -1,8 +1,9 @@
 """Kernels of the serving and training paths and the MSDA core around them.
 
 `gather.quad_gather` (with its backward `gather.quad_scatter`),
-`msda_kernel.msda_forward`, `msda_kernel.msda_backward` and the Swin
-backbone's `window_attn.window_attention` (forward and backward) launch
+`msda_kernel.msda_forward`, `msda_kernel.msda_backward`, the Swin
+backbone's `window_attn.window_attention` (forward and backward) and the
+decode's `decode_step.layer_step` (one v1 decoder layer's step) launch
 hand-written CUDA kernels (`csrc/`) on CUDA tensors and run their plain
 PyTorch versions on CPU tensors; `_build` compiles the kernels at first
 use.
@@ -25,7 +26,7 @@ def launch_counters():
     """Every kernel's launch counter: name -> (its wrapper, the wrapper's
     counter attribute). A wrapper adds one where it launches its kernel;
     a replayed CUDA graph adds the launches it holds (`graphs`)."""
-    from . import gather, msda_fused, msda_kernel, window_attn
+    from . import decode_step, gather, msda_fused, msda_kernel, window_attn
 
     return {"quad_gather": (gather.quad_gather, "launches"),
             "quad_scatter": (gather.quad_scatter, "launches"),
@@ -39,7 +40,8 @@ def launch_counters():
             "window_attn_fwd": (window_attn.window_attn_forward,
                                 "launches"),
             "window_attn_bwd": (window_attn.window_attn_backward,
-                                "launches")}
+                                "launches"),
+            "decode_layer": (decode_step.layer_step, "launches")}
 
 
 __all__ = [

@@ -23,8 +23,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused", "gather", "msda", "msda_bwd", "quadfused", "scatter",
-           "window_attn")
+SOURCES = ("decode_layer", "fused", "gather", "msda", "msda_bwd",
+           "quadfused", "scatter", "window_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,8 +15,9 @@ get no gradient.
 - CPU tensors: `quad_gather_plain` and `quad_scatter_plain`, the same
   functions in plain PyTorch.
 
-The decode step calls the gather 42 times per served request on half a
-megabyte each, so the wrapper is written for many tiny launches. Where no
+A decode step on the chain of modules (every step the layer-step kernel
+of `ops.decode_step` does not take) calls the gather once a layer on half
+a megabyte, so the wrapper is written for many tiny launches. Where no
 gradient can flow (`torch.no_grad()`, `torch.inference_mode()`, or a
 `quad` that does not require one) `quad_gather` launches the kernel
 directly; only otherwise does it go through the `torch.autograd.Function`
@@ -111,7 +112,8 @@ def _launcher(name: str, n_int: int):
 def _check(rows: torch.Tensor, gi: torch.Tensor, what: str):
     """Raise on operands the functions do not take; returns the two shapes
     (read once: every attribute of a tensor costs the host a fraction of
-    a microsecond, and the decode step pays it 42 times a request)."""
+    a microsecond, and a decode on the chain pays it once a layer and
+    token)."""
     rs, gs = rows.shape, gi.shape
     if len(rs) != 3 or len(gs) != 2 or gs[0] != rs[0]:
         raise ValueError(f"{what}: rows (B, n|N, C) and gi (B, N) expected, "

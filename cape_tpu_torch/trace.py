@@ -32,7 +32,10 @@ off:
   the capture;
 - `swin.window_attn`: Swin window-attention calls that took the kernel
   route (`ops.window_attn.window_attention` on CUDA tensors); counted
-  like `msda.whole_op`.
+  like `msda.whole_op`;
+- `decode.layer_step`: decoder-layer decode steps that took the kernel
+  (`ops.decode_step.layer_step` on CUDA tensors); counted like
+  `msda.whole_op`.
 
 One device span sits in the model: `backbone`, around the backbone's call
 in `CAPE.encode_image`. It opens only where the stream is not being

@@ -8,7 +8,7 @@ and exits non-zero at the first phase that fails:
 1. card identity (`nvidia-smi` name and power limit), the versions of
    cv2 and PIL (or "absent") and the resize and decode routes the port
    takes;
-2. each of the eight kernels against its plain PyTorch version on the
+2. each of the kernels against its plain PyTorch version on the
    card at the shapes of the serving and training paths (fp32 and bf16),
    with two times, its plain version's time, a library call's time where
    one computes the same function, and its bound. The two row kernels
@@ -29,11 +29,20 @@ and exits non-zero at the first phase that fails:
    copy; and the Swin backbone's window-attention kernels
    (`phase_window_attn`) at Swin-L's four stages at the train cell's batch,
    shifted and not: forward and every gradient against the plain version,
-   reruns bit-equal, times beside `scaled_dot_product_attention`'s;
+   reruns bit-equal, times beside `scaled_dot_product_attention`'s; and
+   the decode's layer-step kernel (`phase_decode_layer`) at batch 8 at the
+   eval cell's caps and a served request's 200 slots, positions first, mid
+   and last, the first layer and the last: x, ref and the written cache
+   row against the chain in fp32 from the same bf16 weights and inputs,
+   the rest of the cache untouched, reruns bit-equal, its time beside its
+   bytes bound and the bf16 chain's; then a captured decode of an eval
+   batch and of a served request, the chain (`CAPE_MSDA_TINY=xla`) against
+   the kernel: the same tokens, launches and walls;
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
-   kernels' launch counters must show the path went through them;
+   kernels' launch counters must show the path went through them (the
+   encoder's gathers, and one decode-layer launch a layer and token);
 4. the same weights with `use_pallas_msda=True`: one request through the
    whole-op MSDA kernel;
 5. the same weights under `CAPE_MSDA_GATHER=fused` and `fusedq` with
@@ -1291,11 +1300,13 @@ def phase_serving(torch, np, card):
     default_counts = _counts()
     default_res = res
     L = cfg.num_feature_levels
-    want = sum(cfg.enc_layers * L + cfg.dec_layers * _bodies(s)
-               for s in steps)
     print(f"default path: {default_counts} launches over 3 requests, "
           f"decode steps {steps}", flush=True)
-    _check_counts(default_counts, "the default path", quad_gather=want)
+    # the encoder's gathers, and one decode_layer launch a layer a token
+    _check_counts(default_counts, "the default path",
+                  quad_gather=len(steps) * cfg.enc_layers * L,
+                  decode_layer=sum(cfg.dec_layers * _bodies(s)
+                                   for s in steps))
     print(f"predict ms/request (batch 8, 512 px, bf16): "
           f"{[round(t, 3) for t in times]} ({card})", flush=True)
 
@@ -1318,7 +1329,7 @@ def phase_serving(torch, np, card):
           f"decode steps {s}, {ms_p:.3f} ms ({card})", flush=True)
     _check_counts(pallas_counts, "the use_pallas_msda path",
                   msda_forward=cfg.enc_layers,
-                  quad_gather=cfg.dec_layers * _bodies(s))
+                  decode_layer=cfg.dec_layers * _bodies(s))
     del model_p, pred_p
 
     # -- CAPE_MSDA_GATHER=fused|fusedq on the same weights: the last default
@@ -1603,9 +1614,12 @@ def _graph_requests(torch, np, model, card):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = _busy_ms(kernels)
         traced = sum("quad_gather_kernel" in e.name for e in kernels)
-        check(traced == counts["quad_gather"],
-              f"{route} request: the profiler saw {traced} gather kernels, "
-              f"the counter {counts['quad_gather']}")
+        layers = sum("decode_layer_kernel" in e.name for e in kernels)
+        check(traced == counts["quad_gather"]
+              and layers == counts["decode_layer"],
+              f"{route} request: the profiler saw {traced} gather and "
+              f"{layers} decode-layer kernels, the counters "
+              f"{counts['quad_gather']} and {counts['decode_layer']}")
         r = res.setdefault(route, {"walls": [], "peaks": [], "idle": []})
         r["walls"] += walls
         r["peaks"].append(peak)
@@ -2067,8 +2081,9 @@ def phase_eval(torch, np, model, card, root):
     first = run("eval, default path")
     stats, counts, steps = first.stats, first.counts, first.steps
     _check_counts(counts, "the eval's default path",
-                  quad_gather=sum(enc + cfg.dec_layers * _bodies(s, ev.cap)
-                                  for s in steps))
+                  quad_gather=len(steps) * enc,
+                  decode_layer=sum(cfg.dec_layers * _bodies(s, ev.cap)
+                                   for s in steps))
     again = run("eval, default path again").stats
     check(again == stats, f"a second eval gave other stats: {again} "
           f"against {stats}")
@@ -2132,8 +2147,9 @@ def phase_eval_sized(torch, np, model, card, root):
         r = runs[label] = _eval_run(torch, np, model, ev, n, eb, visible,
                                     label, trained_length=forced,
                                     eager=eager)
-        _check_counts(r.counts, label, quad_gather=sum(
-            enc + cfg.dec_layers * _bodies(s, ev.cap) for s in r.steps))
+        _check_counts(r.counts, label, quad_gather=len(r.steps) * enc,
+                      decode_layer=sum(cfg.dec_layers * _bodies(s, ev.cap)
+                                       for s in r.steps))
         if forced:
             check(r.steps == trained, f"{label}: decode steps {r.steps}, "
                   f"a trained model's {trained}")
@@ -2400,12 +2416,13 @@ def phase_train_loop(torch, np, card, root):
     L = cfg.num_feature_levels
     per_micro = (cfg.enc_layers + cfg.dec_layers) * L
     enc = cfg.enc_layers * L
-    val_gathers = sum(enc + cfg.dec_layers * _bodies(s) for s in a.steps) \
-        + len(a.steps) * per_micro
+    val_gathers = len(a.steps) * (enc + per_micro)
     # training sites take the whole-op kernels; validation has no grad
     sites = cfg.enc_layers + cfg.dec_layers
     _check_counts(a.counts, "the training run (auto)",
                   quad_gather=val_gathers,
+                  decode_layer=sum(cfg.dec_layers * _bodies(s)
+                                   for s in a.steps),
                   msda_forward=n_epochs * micro * sites,
                   msda_backward=n_epochs * micro * sites)
 
@@ -2588,6 +2605,7 @@ def phase_train_loop(torch, np, card, root):
           f"save {save_ms:.3f} ms, restore {restore_ms:.3f} ms ({card})",
           flush=True)
     launches = {"quad_gather": a.counts["quad_gather"],
+                "decode_layer": a.counts["decode_layer"],
                 "msda_forward": a.counts["msda_forward"],
                 "msda_backward": a.counts["msda_backward"],
                 "fused_fwd": f.counts["fused_fwd"],
@@ -3462,8 +3480,8 @@ def phase_variants(torch, np, card, root):
         counts = _counts()
         _check_results(np, res, len(imgs), len(PROTO_17))
         steps = max(r["length"] for r in res)
-        _check_counts(counts, f"the {name} request",
-                      quad_gather=enc + base.dec_layers * _bodies(steps))
+        _check_counts(counts, f"the {name} request", quad_gather=enc,
+                      decode_layer=base.dec_layers * _bodies(steps))
         add(counts)
         print(f"  {name}: a request of 8 (warm) {ms:.3f} ms, {steps} decode "
               f"steps, launches {counts} ({card})", flush=True)
@@ -3560,7 +3578,8 @@ def phase_variants(torch, np, card, root):
     _check_results(np, res, len(imgs), len(PROTO_17))
     steps = max(r["length"] for r in res)
     _check_counts(counts, "the imported checkpoint's request",
-                  quad_gather=enc + base.dec_layers * _bodies(steps))
+                  quad_gather=enc,
+                  decode_layer=base.dec_layers * _bodies(steps))
     add(counts)
     want = in_memory.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
     same = all(np.array_equal(a["keypoints"], b["keypoints"])
@@ -4012,14 +4031,15 @@ def phase_ddp(torch, np, card, model, ev, single):
           f"wall ({card})", flush=True)
 
 
-#: the kernels of the default paths: decodes and validation gather, training
-#: takes the whole-op MSDA kernels
+#: the kernels of the default paths: decodes and validation gather in the
+#: encoder and run a flagship-width decoder layer's step as one kernel,
+#: training takes the whole-op MSDA kernels
 WORKFLOW_KERNELS = ("quad_gather", "quad_scatter", "msda_forward",
-                    "msda_backward")
+                    "msda_backward", "decode_layer")
 TRAINS = dict(quad_gather=True, quad_scatter=False, msda_forward=True,
-              msda_backward=True)
+              msda_backward=True, decode_layer=True)
 DECODES = dict(quad_gather=True, quad_scatter=False, msda_forward=False,
-               msda_backward=False)
+               msda_backward=False, decode_layer=True)
 HOST_ONLY = dict.fromkeys(WORKFLOW_KERNELS, False)
 
 
@@ -4077,8 +4097,10 @@ def phase_workflows(torch, np, card, root):
     try:
         with selection(DATASET_ROOT=None,
                        OUTPUT_DIR=os.path.join(root, "smoke")):
+            # the tiny model's decode keeps the chain
             res, rec = _workflow(torch, "launch smoke",
-                                 lambda: launch.main(["smoke"]), **TRAINS)
+                                 lambda: launch.main(["smoke"]),
+                                 **dict(TRAINS, decode_layer=False))
     finally:
         tempfile.tempdir = old_tmp
     check(len(res["history"]) == 1 and os.path.isdir(
@@ -4353,6 +4375,285 @@ def _windows_for_sdpa(torch, wa, qkv, bias, table, heads, shift):
     return q, k, v, mask.to(qkv.dtype).contiguous()
 
 
+#: the decode-layer kernel's cases at batch 8, (label, cache slots): the
+#: eval cell's caps (its categories' keypoint counts + 1) and a served
+#: request's 200 slots; the support padded to `max_support_keypoints`
+DECODE_LAYER_CASES = (("eval, cap 10", 10), ("eval, cap 18", 18),
+                      ("eval, cap 40", 40), ("serve, 200 slots", 200))
+#: valid support keys of the 8 episodes: counts of MP-100's categories,
+#: all 100, and one support set with every key masked
+DECODE_LAYER_SUPPORT = (17, 9, 100, 1, 0, 39, 68, 13)
+
+
+def _decode_layer_model(torch, seed):
+    """A flagship CAPE on the card whose decoder has every parameter drawn
+    from `seed` (weights normal at 1 / sqrt(fan in), sampling offsets'
+    at 2 / sqrt(fan in) so that some samples fall off the levels, biases
+    and norm offsets at 0.1, norm scales 1 + N(0, 0.1)), cast as `CAPE`
+    casts: bf16, the sampling offsets fp32."""
+    from cape_tpu_torch import CAPE, CAPEConfig
+
+    model = CAPE(CAPEConfig(), device="cuda",
+                 generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.decoder.named_parameters():
+            if name in ("token_embed.weight", "query_embed"):
+                continue
+            z = torch.randn(p.shape, generator=g, device="cuda")
+            if "norm" in name and name.endswith("weight"):
+                z = 1 + 0.1 * z
+            elif p.dim() == 2:
+                z = z * (2.0 if "sampling_offsets" in name else 1.0) \
+                    / p.shape[1] ** 0.5
+            elif "sampling_offsets" in name:
+                z = p.float() + 0.1 * z     # the radial grid, jittered
+            else:
+                z = 0.1 * z
+            p.copy_(z.to(p.dtype))
+    return model
+
+
+def _decode_layer_bytes(decoder, lid, B, x_bytes):
+    """Bytes one launch must move at least: the layer's parameters as they
+    lie, one quad row of 4 Dh a (episode, head, level, point), the new K
+    and V rows, the input and the bf16 output rows (the cached keys and
+    the support's are left out: a floor)."""
+    from cape_tpu_torch.ops import decode_step as ds
+
+    params = sum(p.numel() * p.element_size()
+                 for p in ds.layer_params(decoder, lid) if p is not None)
+    dh = ds.D_MODEL // ds.HEADS
+    rows = B * ds.HEADS * ds.LEVELS * ds.POINTS * 4 * dh * 2
+    return params + rows + B * ds.D_MODEL * (2 * 2 + x_bytes + 2)
+
+
+def phase_decode_layer(torch, np, card):
+    """The decode-layer kernel (csrc/decode_layer.cu) at batch 8 at the
+    eval cell's caps and a served request's 200 slots, positions 0, mid
+    and last, for the first layer (fp32 input, expanded anchor) and the
+    last (bf16 input): every output and the written cache row against the
+    chain run in fp32 from the same bf16 weights and inputs, the rest of
+    the cache untouched, reruns bit-equal; its time beside its bytes bound
+    and the bf16 chain's. Then a captured flagship decode of one eval
+    batch (cap 18) and one served request, the chain (`CAPE_MSDA_TINY=xla`
+    keeps it) against the kernel route: tokens emitted, positions reached,
+    launches and walls. Returns the entry of the kernels line."""
+    import copy
+
+    from cape_tpu_torch import graphs
+    from cape_tpu_torch.models.decoder import LayerCache
+    from cape_tpu_torch.ops import _build
+    from cape_tpu_torch.ops import decode_step as ds
+
+    for line in _build.build_log("decode_layer").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"  decode_layer: {line.strip()}", flush=True)
+    model = _decode_layer_model(torch, 22)
+    dec = model.decoder
+    dec32 = copy.deepcopy(dec).float()
+    shapes = model.spatial_shapes
+    B, N, S = 8, model.cfg.max_support_keypoints, sum(h * w for h, w in shapes)
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # tolerances, each gap over the fp32 result's largest magnitude: the
+    # kernel's products take bf16 inputs, as the chain's `Dense` layers
+    # cast theirs (a relative 2^-9 a rounding, about a dozen roundings in
+    # a row through the layer), while its residuals, LayerNorms and
+    # softmaxes stay in fp32; the bf16 chain itself reads up to 0.0134 (x)
+    # and 0.0029 (ref) at these shapes. ref: through a sigmoid of slope at
+    # most 1/4
+    tols = {"x": 2 ** -6, "ref": 2 ** -7, "cache_row": 2 ** -6}
+    worst = dict.fromkeys(tols, 0.0)
+    entry_sites = {}
+    with torch.no_grad():
+        memory = randn(B, S, ds.D_MODEL)
+        feats = randn(B, N, ds.D_MODEL)
+        mask = torch.ones((B, N), dtype=torch.bool, device="cuda")
+        for b, n in enumerate(DECODE_LAYER_SUPPORT):
+            mask[b, :n] = False
+        for lid in (0, dec.num_layers - 1):
+            layer, layer32 = dec.layers[lid], dec32.layers[lid]
+            slab = layer.memory_quads(memory, shapes)
+            sk, sv = layer.support_kv(feats)
+            sk32, sv32 = layer32.support_kv(feats.float())
+            if lid == 0:
+                x = randn(B, 1, ds.D_MODEL, dtype=torch.float32)
+                ref = torch.rand((1, 1, 2), generator=g,
+                                 device="cuda").expand(B, 1, 2)
+            else:
+                x = randn(B, 1, ds.D_MODEL)
+                ref = 0.02 + 0.96 * torch.rand((B, 1, 2), generator=g,
+                                               device="cuda")
+            for label, L in DECODE_LAYER_CASES:
+                k0, v0 = randn(B, ds.HEADS, L, 32), randn(B, ds.HEADS, L, 32)
+                why = ds.refusal(dec, x, slab, LayerCache(k0, v0), sk)
+                check(why is None, f"decode_layer [{label}]: the kernel "
+                      f"refused the flagship step: {why}")
+                for at in (0, L // 2, L - 1):
+                    pos = torch.tensor(at, device="cuda")
+                    runs = []
+                    for _ in range(2):
+                        c = LayerCache(k0.clone(), v0.clone())
+                        xo, ro = ds.layer_step(dec, lid, x, ref, slab,
+                                               shapes, c, pos, sk, sv, mask)
+                        runs.append((xo, ro, c.k, c.v))
+                    check(all(torch.equal(p, q)
+                              for p, q in zip(runs[0], runs[1])),
+                          f"decode_layer [{label}, layer {lid}, pos {at}]: "
+                          "a rerun gave other bits")
+                    xo, ro, ck, cv = runs[0]
+                    c32 = LayerCache(k0.float(), v0.float())
+                    x32, r32 = ds.layer_step_plain(
+                        dec32, lid, x.float(), ref, slab.float(), shapes,
+                        c32, pos, sk32, sv32, mask)
+                    rest = torch.ones(L, dtype=torch.bool, device="cuda")
+                    rest[at] = False
+                    check(torch.equal(ck[:, :, rest], k0[:, :, rest])
+                          and torch.equal(cv[:, :, rest], v0[:, :, rest]),
+                          f"decode_layer [{label}, pos {at}]: the kernel "
+                          "wrote cache slots other than pos")
+                    gaps = {"x": _gap(xo, x32),
+                            "ref": (ro - r32).abs().max().item(),
+                            "cache_row": max(
+                                _gap(ck[:, :, at], c32.k[:, :, at]),
+                                _gap(cv[:, :, at], c32.v[:, :, at]))}
+                    cb = LayerCache(k0.clone(), v0.clone())
+                    xb, rb = ds.layer_step_plain(dec, lid, x, ref, slab,
+                                                 shapes, cb, pos, sk, sv,
+                                                 mask)
+                    chain = {"x": _gap(xb, x32),
+                             "ref": (rb - r32).abs().max().item()}
+                    print(f"decode_layer [{label}, layer {lid}, pos {at}]: "
+                          f"gaps to the fp32 chain {json.dumps(gaps)}, the "
+                          f"bf16 chain's {json.dumps(chain)} (tolerances "
+                          f"{json.dumps(tols)})", flush=True)
+                    for k, v in gaps.items():
+                        check(v <= tols[k], f"decode_layer [{label}, layer "
+                              f"{lid}, pos {at}]: {k} gap {v:.3e} above "
+                              f"{tols[k]:.3e}")
+                        worst[k] = max(worst[k], v)
+                # times at the last slot: the kernel, the bf16 chain
+                pos = torch.tensor(L - 1, device="cuda")
+                c = LayerCache(k0, v0)
+                args = (x, ref, slab, shapes, c, pos, sk, sv, mask)
+                t = {"shape": f"{label}, layer {lid}"}
+                t["ms"], t["device_ms"] = both_ms(
+                    torch, lambda: ds.layer_step(dec, lid, *args))
+                t["plain_ms"], t["plain_device_ms"] = both_ms(
+                    torch, lambda: ds.layer_step_plain(dec, lid, *args))
+                t["bound_ms"] = _decode_layer_bytes(
+                    dec, lid, B, x.element_size()) / HBM_BYTES_PER_S * 1e3
+                t["bound_share"] = t["bound_ms"] / t["device_ms"]
+                print(f"decode_layer [{t['shape']}] {json.dumps(t)} "
+                      f"({card})", flush=True)
+                entry_sites[t["shape"]] = t
+            del slab, sk, sv, sk32, sv32
+        # a batch short of a tile and one over it (a cluster of 8 blocks
+        # takes 8 episodes): the last layer, eval's cap 18, mid-cache
+        lid, L, at = dec.num_layers - 1, 18, 9
+        layer, layer32 = dec.layers[lid], dec32.layers[lid]
+        for nb in (3, 11):
+            mem = randn(nb, S, ds.D_MODEL)
+            sup = randn(nb, N, ds.D_MODEL)
+            m = torch.ones((nb, N), dtype=torch.bool, device="cuda")
+            for b in range(nb):
+                m[b, :DECODE_LAYER_SUPPORT[b % 8]] = False
+            slab = layer.memory_quads(mem, shapes)
+            sk, sv = layer.support_kv(sup)
+            sk32, sv32 = layer32.support_kv(sup.float())
+            x = randn(nb, 1, ds.D_MODEL)
+            ref = 0.02 + 0.96 * torch.rand((nb, 1, 2), generator=g,
+                                           device="cuda")
+            k0, v0 = randn(nb, ds.HEADS, L, 32), randn(nb, ds.HEADS, L, 32)
+            pos = torch.tensor(at, device="cuda")
+            c = LayerCache(k0.clone(), v0.clone())
+            xo, ro = ds.layer_step(dec, lid, x, ref, slab, shapes, c, pos,
+                                   sk, sv, m)
+            c32 = LayerCache(k0.float(), v0.float())
+            x32, r32 = ds.layer_step_plain(dec32, lid, x.float(), ref,
+                                           slab.float(), shapes, c32, pos,
+                                           sk32, sv32, m)
+            gaps = {"x": _gap(xo, x32), "ref": (ro - r32).abs().max().item(),
+                    "cache_row": max(_gap(c.k[:, :, at], c32.k[:, :, at]),
+                                     _gap(c.v[:, :, at], c32.v[:, :, at]))}
+            print(f"decode_layer [batch {nb}, layer {lid}, pos {at}]: gaps "
+                  f"to the fp32 chain {json.dumps(gaps)}", flush=True)
+            for k, v in gaps.items():
+                check(v <= tols[k], f"decode_layer [batch {nb}]: {k} gap "
+                      f"{v:.3e} above {tols[k]:.3e}")
+                worst[k] = max(worst[k], v)
+            del slab, sk, sv, sk32, sv32
+    print(f"decode_layer: worst gaps {json.dumps(worst)}", flush=True)
+
+    # a captured flagship decode, the chain against the kernel
+    inputs = _decode_inputs(torch, np, model.cfg)
+    for what, bias, cap in (("eval batch, cap 18", (8.0, -8.0, -8.0), 18),
+                            ("served request", (0.0, -8.0, 8.0), None)):
+        with torch.no_grad():
+            for head in dec.class_heads:
+                head.bias.copy_(torch.tensor(bias, dtype=head.bias.dtype))
+        outs, walls, counts = {}, {}, {}
+        for route, env in (("chain", dict(CAPE_MSDA_TINY="xla")),
+                           ("kernel", {})):
+            with selection(**env):
+                graphs.clear(model)
+                graphs.decode(model, *inputs, max_len=cap)
+                _reset_counts()
+                outs[route] = graphs.decode(model, *inputs, max_len=cap)
+                counts[route] = {k: v for k, v in _counts().items() if v}
+                walls[route] = _walls(torch, lambda: graphs.decode(
+                    model, *inputs, max_len=cap), n=5)
+        graphs.clear(model)
+        a, b = outs["chain"], outs["kernel"]
+        steps = int(a["lengths"].max())
+        check(torch.equal(a["lengths"], b["lengths"])
+              and torch.equal(a["unfinished"], b["unfinished"])
+              and torch.equal(a["gen_valid"], b["gen_valid"]),
+              f"decode_layer, {what}: the kernel route emitted other "
+              f"tokens ({a['lengths'].tolist()} / {b['lengths'].tolist()})")
+        cgap = (a["pred_coords"] - b["pred_coords"]).abs().max().item()
+        first = (a["pred_coords"][:, 0] - b["pred_coords"][:, 0]).abs().max(
+            ).item()
+        lgap = (a["pred_logits"] - b["pred_logits"]).abs().max().item()
+        enc = model.cfg.enc_layers * model.cfg.num_feature_levels
+        bodies = _bodies(steps, cap or 200)
+        _check_counts(counts["kernel"], f"{what} (kernel)",
+                      quad_gather=enc,
+                      decode_layer=model.cfg.dec_layers * bodies)
+        _check_counts(counts["chain"], f"{what} (chain)",
+                      quad_gather=enc + model.cfg.dec_layers * bodies)
+        # the first token's coordinates, before any re-tokenisation: the
+        # benchmark's eval limit on a coordinate's gap to the fp32
+        # reference, which each route meets. Later tokens read the bins
+        # their predecessors' coordinates fell in, so a rounding that moves
+        # a coordinate across a bin's edge moves every later token
+        check(first <= 0.02, f"decode_layer, {what}: first coordinates "
+              f"{first:.4f} apart between the routes")
+        print(f"decode_layer, {what}: {steps} tokens a sample on both "
+              f"routes, lengths equal; coords gap {cgap:.5f} (first token "
+              f"{first:.5f}), logits gap "
+              f"{lgap:.5f}; launches {counts}; walls ms chain "
+              f"{[round(w, 3) for w in walls['chain']]}, kernel "
+              f"{[round(w, 3) for w in walls['kernel']]} ({card})",
+              flush=True)
+    del model, dec, dec32
+    sites = entry_sites
+    return {"name": "decode_layer", "route": "cuda",
+            "source": "cape_tpu_torch/ops/csrc/decode_layer.cu",
+            "replaces": None, "launches": 0,
+            "max_gap": worst["x"],
+            "sites": {k: {f: t[f] for f in (
+                "device_ms", "ms", "plain_ms", "plain_device_ms",
+                "bound_ms", "bound_share")} for k, t in sites.items()},
+            "device_ms": max(t["device_ms"] for t in sites.values()),
+            "bound_ms": max(t["bound_ms"] for t in sites.values()),
+            "plain_ms": max(t["plain_ms"] for t in sites.values())}
+
+
 def phase_swin(torch, np, card):
     """DINO's Swin-L on the main paths: one real update of 4 micro-steps of
     4 images at 512 px on the captured route (24 window-attention forward
@@ -4473,6 +4774,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
         kernels = phase_kernels(torch, card) + phase_window_attn(torch, card)
+        kernels.append(phase_decode_layer(torch, np, card))
         model, default_counts, pallas_counts, fused_counts = phase_serving(
             torch, np, card)
         phase_graphs(torch, np, card, model)
@@ -4510,6 +4812,7 @@ def main() -> int:
     # for the forward kernels, the training micro-steps for the backward
     # (`quad_scatter` under CAPE_MSDA_GATHER=xla)
     launches = {"quad_gather": default_counts["quad_gather"],
+                "decode_layer": default_counts["decode_layer"],
                 "msda_forward": pallas_counts["msda_forward"],
                 "msda_backward": train_counts["msda_backward"],
                 "quad_scatter": fused_bwd_counts["quad"],
@@ -4521,6 +4824,7 @@ def main() -> int:
     # and the evaluation path's runs (default path, then `fused`), and the
     # training entry point's (its run under auto, then its `fused` epoch)
     eval_launches = {"quad_gather": eval_counts["quad_gather"],
+                     "decode_layer": eval_counts["decode_layer"],
                      "fused_fwd": eval_fused_counts["fused_fwd"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
