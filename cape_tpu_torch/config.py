@@ -150,8 +150,7 @@ class CAPEConfig:
     # ---- pallas kernels ----
     # The whole-op MSDA forward kernel (ops/msda_kernel.py) in place of the
     # per-level core. The core's own formulation is not a config field:
-    # the CAPE_MSDA_GATHER environment variable selects it ('auto'
-    # default: the quad-row gather; see ops/gather.default_gather_impl).
+    # environment variables select it (the route table of ops/msda.py).
     use_pallas_msda: bool = False
 
     # ---- memory ----

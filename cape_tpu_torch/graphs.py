@@ -10,14 +10,13 @@ captured once per key into CUDA graphs (`torch.cuda.CUDAGraph`) and then
 replayed, one launch a graph:
 
 - the decode (`decode`), keyed as the jit cache keys `_decode_jit`: by
-  model, input shapes and dtypes, token cap and the MSDA selection (and
-  whether `force_length` is set: its value is an input). A prologue graph (`models.cape.decode_prologue`: both
+  model, input shapes and dtypes, token cap, the MSDA selection
+  (`ops.msda.selection()`) and whether `force_length` is set (its value
+  is an input). A prologue graph (`models.cape.decode_prologue`: both
   encoders, the decode-time constants, the BOS state) is replayed once,
-  then a chunk graph of `models.cape.DECODE_CHUNK` token bodies
-  (`decode_token`) until the host reads that every sample has finished,
-  or the cap (a tail graph takes the rest where the cap is not a multiple
-  of the chunk): one host read a chunk, where the eager loop read one a
-  token before this module;
+  then a token-body graph (`decode_token`) once a token, with a host read
+  after every token but the last, until every sample has finished or the
+  cap: the loop of the eager `models.cape.autoregressive_decode`;
 - the micro-step of training (`step_program`), keyed by model, train
   state, batch shapes, dropout generator and MSDA selection: one graph
   that folds the gradients and one that folds and updates, the host
@@ -47,10 +46,10 @@ How the programs are kept right:
   JAX); each replay adds the launches its graph holds;
 - spans and counters (`trace`): a capture with its warm-up is the span
   `graphs.capture` and counts one `graphs.captures`; the decode records
-  the spans and counters of the eager `models.cape.decode_chunked` under
-  the same names, a replay timed on the device as `decode.prologue` or
-  `decode.chunk`, and the micro-step's `step.*` spans its copy-in, replay
-  and copy-out;
+  the spans and counters of the eager `models.cape.autoregressive_decode`
+  under the same names, a replay timed on the device as `decode.prologue`
+  or `decode.chunk` (a token body), and the micro-step's `step.*` spans
+  its copy-in, replay and copy-out;
 - captures run with `capture_error_mode="thread_local"`: the prefetch
   thread may copy the next batch to the card meanwhile.
 
@@ -64,26 +63,19 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import os
 import weakref
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from .config import CAPEConfig
-from .models.cape import (CAPE, DECODE_CHUNK, decode_length, decode_outputs,
-                          decode_pending, decode_prologue, decode_token)
+from .models.cape import (CAPE, decode_length, decode_outputs,
+                          decode_pending, decode_prologue, decode_token,
+                          decode_tokens)
 from .ops import launch_counters
+from .ops.msda import selection
 from .parallel import process_count
 from . import trace
-
-#: the variables that select an MSDA formulation, read while a body is
-#: captured, and so a part of every program's key
-SELECTION = ("CAPE_MSDA_GATHER", "CAPE_MSDA_TINY", "CAPE_DECODE_PREQUAD")
-
-
-def _selection() -> Tuple:
-    return tuple(os.environ.get(k) for k in SELECTION)
 
 
 class _ModelGraphs:
@@ -222,10 +214,9 @@ def _copy_into(static, tree) -> None:
 
 # -- the decode ------------------------------------------------------------
 class _DecodeProgram:
-    """The captured decode of one key: a prologue graph, a chunk graph of
-    `DECODE_CHUNK` token bodies and, where the cap is not a multiple of
-    it, a tail graph of the rest, over one carry: the chunks of the eager
-    `models.cape.decode_chunked`."""
+    """The captured decode of one key: a prologue graph and a token-body
+    graph over one carry, replayed as the eager
+    `models.cape.autoregressive_decode` runs its bodies."""
 
     def __init__(self, model: CAPE, mg: _ModelGraphs, inputs, length: int,
                  forced: bool):
@@ -241,22 +232,19 @@ class _DecodeProgram:
         def prologue():
             return decode_prologue(model, *self.inputs, length)
 
-        def tokens(carry, n):
-            for _ in range(n):
-                decode_token(model, carry, self.force)
+        def token(carry):
+            decode_token(model, carry, self.force)
             return decode_pending(carry)
 
+        self.length = length
         self.prologue = _Graph(mg, prologue,
-                               warm=lambda: tokens(prologue(), 1))
+                               warm=lambda: token(prologue()))
         self.carry = self.prologue.out
-        full, tail = divmod(length, DECODE_CHUNK)
-        chunk = _Graph(mg, lambda: tokens(self.carry, DECODE_CHUNK)) \
-            if full else None
-        # (graph, token bodies it runs)
-        self.chunks = [(chunk, DECODE_CHUNK)] * full
-        if tail:
-            self.chunks.append(
-                (_Graph(mg, lambda: tokens(self.carry, tail)), tail))
+        self.body = _Graph(mg, lambda: token(self.carry))
+
+    def _replay_body(self) -> torch.Tensor:
+        self.body.replay()
+        return self.body.out
 
     def __call__(self, inputs, force_length: Optional[int]
                  ) -> Dict[str, torch.Tensor]:
@@ -268,18 +256,7 @@ class _DecodeProgram:
                 self.force.fill_(force_length)
         with trace.device_span("decode.prologue", dev):
             self.prologue.replay()
-        last = len(self.chunks) - 1
-        for i, (chunk, n) in enumerate(self.chunks):
-            with trace.device_span("decode.chunk", dev):
-                chunk.replay()
-            trace.count("decode.steps", n)
-            if i == last:
-                break
-            trace.count("decode.host_reads")
-            with trace.span("decode.host_read"):
-                pending = bool(chunk.out)
-            if not pending:
-                break
+        decode_tokens(self.length, self._replay_body, dev)
         with trace.device_span("decode.outputs", dev):
             return decode_outputs(self.carry, self.seq_len)
 
@@ -305,7 +282,7 @@ def decode(model: CAPE, images, support_coords, support_mask,
         mg = _graphs_of(model)
         forced = force_length is not None
         key = ("decode", tuple(_signature(t) for t in inputs), length,
-               forced, _selection())
+               forced, selection())
         program = mg.programs.get(key)
         if program is None:
             program = mg.programs[key] = _DecodeProgram(model, mg, inputs,
@@ -392,7 +369,7 @@ def step_program(model: CAPE, state, batch,
     mg = _graphs_of(model)
     batch = _tensors({k: batch[k] for k in _INPUTS})
     key = ("step", id(state.opt_state), id(generator), _signature(batch),
-           _selection())
+           selection())
     entry = mg.programs.get(key)
     if entry is not None and entry[0]() is state.opt_state:
         return entry[1]

@@ -25,14 +25,15 @@ decoder, plus the autoregressive decode loop: the port of
   once every sample has emitted EOS. The JAX `while_loop` becomes a
   prologue (`decode_prologue`) and a token body (`decode_token`) that
   carries the position on the device and masks its writes, so that the
-  body can be captured into a CUDA graph and replayed in chunks
-  (`graphs.decode`); the host reads the exit once a chunk.
+  body can be captured into a CUDA graph and replayed once a token
+  (`graphs.decode`); the host reads the exit after every token but the
+  last.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -326,19 +327,6 @@ class CAPE(nn.Module):
 
 
 # ----------------------------------------------------------------------
-#: tokens decoded between two host reads of "has every sample finished?",
-#: eagerly and in the captured decode (`graphs.decode`). A read costs a
-#: device sync and a relaunch; a token run after the batch has finished
-#: costs its device time and writes nothing. On an NVIDIA H100 80GB HBM3
-#: (700 W) a replayed token body of the flagship decode at batch 8 takes
-#: ~4.3 ms of device time and a read far less, so every token past the
-#: end costs more than the reads a longer chunk saves: the captured decode
-#: of 17 tokens took 131.7 ms at 1, 138.9 at 2, 146.8 at 4 and 163.9 at 8
-#: (medians of 9, `chip_smoke.py`'s chunk sweep); of 7 tokens 70-84 ms
-#: at every chunk, within the run's spread.
-DECODE_CHUNK = 1
-
-
 def decode_prologue(model: CAPE, images, support_coords, support_mask,
                     skeleton_edges, length: int) -> Dict:
     """Everything of a decode before its first token: the image and the
@@ -467,48 +455,32 @@ def decode_outputs(carry: Dict, seq_len: int) -> Dict[str, torch.Tensor]:
     return out
 
 
+def decode_tokens(length: int, token: Callable[[], torch.Tensor],
+                  device: torch.device) -> None:
+    """The token loop of both decode routes: `token()` (one token body,
+    returning `decode_pending`) once a token, and a host read of what it
+    returned after every token but the last, until no sample is pending.
+    A body is the span `decode.chunk` (timed on the device) and counts one
+    `decode.steps`; a read is the span `decode.host_read` and counts one
+    `decode.host_reads`."""
+    for pos in range(length):
+        with trace.device_span("decode.chunk", device):
+            pending = token()
+        trace.count("decode.steps")
+        if pos == length - 1:
+            return
+        trace.count("decode.host_reads")
+        with trace.span("decode.host_read"):
+            if not bool(pending):
+                return
+
+
 def decode_length(cfg: CAPEConfig, max_len: Optional[int]) -> int:
     """The decode's token cap and KV-cache length."""
     return cfg.seq_len if max_len is None else min(int(max_len), cfg.seq_len)
 
 
 @torch.inference_mode()
-def decode_chunked(model: CAPE, images, support_coords, support_mask,
-                   skeleton_edges, force_length: Optional[int] = None,
-                   max_len: Optional[int] = None,
-                   chunk: int = DECODE_CHUNK) -> Dict[str, torch.Tensor]:
-    """`autoregressive_decode` run eagerly as the captured decode runs it:
-    the prologue, then chunks of `chunk` token bodies (the last one cut at
-    the cap), with a host read of `decode_pending` between two chunks. The
-    result does not depend on `chunk`. Records the spans and counters of
-    `graphs.decode` (`trace`) under the same names."""
-    dev = model.device
-    with trace.span("decode"):
-        with trace.device_span("decode.inputs", dev):
-            images, support_coords, support_mask, skeleton_edges = (
-                torch.as_tensor(x, device=dev) for x in
-                (images, support_coords, support_mask, skeleton_edges))
-        L = decode_length(model.cfg, max_len)
-        with trace.device_span("decode.prologue", dev):
-            carry = decode_prologue(model, images, support_coords,
-                                    support_mask, skeleton_edges, L)
-        for start in range(0, L, chunk):
-            n = min(chunk, L - start)
-            with trace.device_span("decode.chunk", dev):
-                for _ in range(n):
-                    decode_token(model, carry, force_length)
-            trace.count("decode.steps", n)
-            if start + chunk >= L:
-                break
-            trace.count("decode.host_reads")
-            with trace.span("decode.host_read"):
-                pending = bool(decode_pending(carry))
-            if not pending:
-                break
-        with trace.device_span("decode.outputs", dev):
-            return decode_outputs(carry, model.cfg.seq_len)
-
-
 def autoregressive_decode(
     model: CAPE,
     images,
@@ -520,14 +492,16 @@ def autoregressive_decode(
 ) -> Dict[str, torch.Tensor]:
     """Autoregressive generation on the model's device, eagerly.
 
-    The encoder runs once, then up to seq_len tokens are generated with
-    static KV caches, stopping once every sample has emitted EOS (read on
-    the host every `DECODE_CHUNK` tokens; see `decode_token`). Token-type
-    branching is vectorized with `torch.where`, and predicted coordinates
-    are re-tokenized (floor/ceil corner ids + deltas) on the device. Output
-    buffers are (B, seq_len, ...); steps never executed stay at their
-    defaults (zero logits/coords, valid=False). `eval.evaluate.decode`
-    replays the same bodies as captured CUDA graphs on the card.
+    The encoder runs once (`decode_prologue`), then up to seq_len tokens
+    are generated with static KV caches (`decode_token`), with a host read
+    of `decode_pending` after every token but the last: the loop stops
+    once every sample has emitted EOS. Token-type branching is vectorized
+    with `torch.where`, and predicted coordinates are re-tokenized
+    (floor/ceil corner ids + deltas) on the device. Output buffers are
+    (B, seq_len, ...); steps never executed stay at their defaults (zero
+    logits/coords, valid=False). `eval.evaluate.decode` replays the same
+    bodies as captured CUDA graphs on the card (`graphs.decode`), and this
+    records its spans and counters (`trace`) under the same names.
 
     Inputs may be numpy arrays or tensors; they move to the model's device.
 
@@ -543,5 +517,21 @@ def autoregressive_decode(
     every sample generate exactly that many tokens (a benchmark knob); it
     may exceed the cap, which then truncates with unfinished=True.
     """
-    return decode_chunked(model, images, support_coords, support_mask,
-                          skeleton_edges, force_length, max_len)
+    dev = model.device
+    with trace.span("decode"):
+        with trace.device_span("decode.inputs", dev):
+            images, support_coords, support_mask, skeleton_edges = (
+                torch.as_tensor(x, device=dev) for x in
+                (images, support_coords, support_mask, skeleton_edges))
+        L = decode_length(model.cfg, max_len)
+        with trace.device_span("decode.prologue", dev):
+            carry = decode_prologue(model, images, support_coords,
+                                    support_mask, skeleton_edges, L)
+
+        def token():
+            decode_token(model, carry, force_length)
+            return decode_pending(carry)
+
+        decode_tokens(L, token, dev)
+        with trace.device_span("decode.outputs", dev):
+            return decode_outputs(carry, model.cfg.seq_len)

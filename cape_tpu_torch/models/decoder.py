@@ -16,10 +16,8 @@ generator is passed), and `forward_step`, one token against the KV caches
 (serving). On the card a flagship layer's step is one hand-written kernel
 (`ops.decode_step.layer_step`), wherever `ops.decode_step.refusal` finds
 nothing against it; every other step runs the chain of modules
-(`ops.decode_step.layer_step_plain`). With `CAPE_DECODE_PREQUAD=0` the
-decode keeps each layer's plain projected value instead of its quad slab
-and every step runs `ms_deform_attn_core`, where every MSDA formulation is
-selectable.
+(`ops.decode_step.layer_step_plain`); `ops.msda`'s route table says which
+runs under each MSDA selection.
 
 `Decoder(layer_type=...)` also builds the experimental layers v2-v6 of
 `decoder_variants.py`, and the v1 options `attn_concat_src` (the raw
@@ -32,7 +30,6 @@ teacher-forced only: the decode refuses them with the JAX package's
 from __future__ import annotations
 
 import math
-import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import decode_step
+from ..ops import msda as ops_msda
 from .attention import MultiHeadAttention
 from .decoder_variants import (DecoderLayerV2, DecoderLayerV3,
                                DecoderLayerVC, _prefix_mask)
@@ -402,17 +400,16 @@ class Decoder(nn.Module):
         """Per-layer quad slabs of the projected memory, and support K/V:
         the decode-time-constant inputs, computed once per request.
 
-        A quad slab holds each value row 4 times. `CAPE_DECODE_PREQUAD=0`
-        keeps the plain per-layer (B, S, H, Dh) value instead, and each
-        decode step runs `ms_deform_attn_core` on it: a quarter of the
-        cache, a repack per step on the quad-row path, and every MSDA
-        formulation selectable."""
+        A quad slab holds each value row 4 times. Where
+        `ops.msda.decode_prequad()` is False the plain per-layer (B, S, H,
+        Dh) value is kept instead: a quarter of the cache, a repack per
+        step on the quad-row path."""
         self._require_v1("autoregressive decode (precompute_static)")
-        if os.environ.get("CAPE_DECODE_PREQUAD", "1") == "0":
-            mem_values = [l.memory_value(memory) for l in self.layers]
-        else:
+        if ops_msda.decode_prequad():
             mem_values = [l.memory_quads(memory, spatial_shapes)
                           for l in self.layers]
+        else:
+            mem_values = [l.memory_value(memory) for l in self.layers]
         support_kvs = [l.support_kv(support_features) for l in self.layers]
         return mem_values, support_kvs
 

@@ -28,7 +28,7 @@
 // corner row as whole 16-byte pieces and stores 32 / units whole
 // consecutive output rows, and the decode step's few rows are one short
 // launch. What bounds it, measured with throwaway variants
-// (`scripts/torch_sample_fwd_sweep.py --variants`; H100 SXM, 700 W,
+// (built and timed beside this kernel; H100 SXM, 700 W,
 // bf16, 64 slabs of 21,760 rows): with 8 bytes a thread, reading gi and
 // w4 and writing the output, without any gather, took 0.046 ms, longer
 // than this kernel with its gathers at the smallest level (0.043); the

@@ -44,7 +44,7 @@
 // (`ops/msda_kernel.py`), bit for bit, and only the order of the sum
 // differs.
 //
-// Measured (`scripts/torch_sample_fwd_sweep.py` on throwaway builds; H100
+// Measured (throwaway builds timed beside this one; H100
 // SXM, 700 W, bf16, the serving encoder's 8 x 5440 queries): 0.17 ms
 // with model-like locations, 0.14 with uniform ones (15 of 16 corners
 // skipped), 0.06 with no value load at all. The multiply-adds and bf16

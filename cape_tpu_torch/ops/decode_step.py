@@ -13,17 +13,15 @@ point (`Decoder._refine`), for all B episodes of a token.
   no Pallas kernel: the JAX package leaves this glue to XLA's fusion
   inside its `jit`; on the card the chain was ~420 ATen kernels a layer.
   The decode sites' quad gather is folded into it.
-- `refusal(decoder, x, mem_value, cache, support_k)`: why a step does not take the
-  kernel, or None. The kernel takes what it can observe to be the
-  flagship's layer: a v1 layer against its quad slab (`CAPE_DECODE_PREQUAD`
-  not 0), an MSDA selection that resolves to 'auto' at the decode site (a
-  forced `CAPE_MSDA_GATHER` / `CAPE_MSDA_TINY` name keeps the chain), d 256
-  in 8 heads, 4 levels of 4 points, an FFN of 1024, bf16 parameters, cache
-  and slab, a cache no longer than `seq_len`, at most 128 support keys,
-  and CUDA tensors. The
-  pre-projections (`qkv_proj`), the query position (`query_pos_type`) and
-  the refinement (`poly_refine`, or the last layer) are the kernel's
-  arguments.
+- `refusal(decoder, x, mem_value, cache, support_k)`: why a step does not
+  take the kernel, or None (its row of `ops.msda`'s route table). The
+  kernel takes what it can observe to be the flagship's layer: a v1 layer
+  against its quad slab, the 'auto' MSDA selection, d 256 in 8 heads, 4
+  levels of 4 points, an FFN of 1024, bf16 parameters, cache and slab, a
+  cache no longer than `seq_len`, at most 128 support keys, and CUDA
+  tensors. The pre-projections (`qkv_proj`), the query position
+  (`query_pos_type`) and the refinement (`poly_refine`, or the last
+  layer) are the kernel's arguments.
 
 The kernel reads every parameter where it lies (a struct of pointers, no
 packed copy), so a model loaded or trained after its first decode decodes
@@ -42,7 +40,7 @@ import torch
 
 from .. import trace
 from . import _build
-from .msda import _resolve_impl_for_shape, quad_level_offsets
+from .msda import quad_level_offsets, resolve_impl
 
 #: the shapes the kernel is built for
 D_MODEL, HEADS, LEVELS, POINTS, D_FFN = 256, 8, 4, 4, 1024
@@ -114,7 +112,7 @@ def refusal(decoder, x: torch.Tensor, mem_value: torch.Tensor, cache,
         return "no quad slab (CAPE_DECODE_PREQUAD=0)"
     layer = decoder.layers[0]
     ca = layer.cross_attn
-    impl = _resolve_impl_for_shape(ca.n_levels * ca.n_points)
+    impl = resolve_impl(ca.n_levels * ca.n_points)
     if impl != "auto":
         return f"the MSDA selection is {impl!r}"
     dims = (decoder.d_model, decoder.n_heads, ca.n_levels, ca.n_points,

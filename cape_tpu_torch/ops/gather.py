@@ -15,10 +15,9 @@ get no gradient.
 - CPU tensors: `quad_gather_plain` and `quad_scatter_plain`, the same
   functions in plain PyTorch.
 
-A decode step on the chain of modules (every step the layer-step kernel
-of `ops.decode_step` does not take) calls the gather once a layer on half
-a megabyte, so the wrapper is written for many tiny launches. Where no
-gradient can flow (`torch.no_grad()`, `torch.inference_mode()`, or a
+A decode step on the chain of modules calls the gather once a layer on
+half a megabyte, so the wrapper is written for many tiny launches. Where
+no gradient can flow (`torch.no_grad()`, `torch.inference_mode()`, or a
 `quad` that does not require one) `quad_gather` launches the kernel
 directly; only otherwise does it go through the `torch.autograd.Function`
 that records the scatter as its backward. The launch functions are
@@ -32,17 +31,13 @@ CPU tests reach; the kernel is handed its result as plain ints.
 
 `quad_gather.launches` and `quad_scatter.launches` count kernel launches
 (never plain calls), so a run can show that the main path went through the
-kernels.
-
-`default_gather_impl()` reads the process-wide MSDA formulation from
-`CAPE_MSDA_GATHER`, as the JAX package does.
+kernels. Which sites gather quad rows is `ops.msda`'s route table.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from typing import NamedTuple
 
 import torch
@@ -50,26 +45,6 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def default_gather_impl() -> str:
-    """The process-wide MSDA formulation (`CAPE_MSDA_GATHER`), read at
-    every call: the counterpart of `cape_tpu/ops/gather_mxu.py:194-219`.
-
-    'fused' | 'fusedq' | 'naive' | 'flat' select those formulations of
-    `ops.msda.ms_deform_attn_core`. 'auto' (the default), 'xla' and 'mxu'
-    all mean the quad-row path: the JAX package has two row gathers there
-    (`take_along_axis` and the one-hot kernel), the port has one, and the
-    tensor's device picks its kernel or its plain version. Sites with few
-    gather rows are resolved in `ops.msda._resolve_impl_for_shape`.
-    """
-    choice = os.environ.get("CAPE_MSDA_GATHER", "auto").lower()
-    if choice in ("auto", "xla", "mxu", "fused", "fusedq", "naive", "flat"):
-        return choice
-    raise ValueError(
-        f"CAPE_MSDA_GATHER={choice!r}: expected 'xla', 'mxu', 'fused', "
-        "'fusedq', 'naive', 'flat' or 'auto'"
-    )
 
 
 def quad_gather_plain(quad: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Multi-scale deformable attention core: the port of `cape_tpu.ops.msda`.
+"""Multi-scale deformable attention core: the port of `cape_tpu.ops.msda`,
+and the one owner of the MSDA selection (the route table below).
 
 Bilinear semantics match `F.grid_sample(mode='bilinear',
 padding_mode='zeros', align_corners=False)`: with normalized location
@@ -10,8 +11,7 @@ The default formulation is the JAX package's quad rows: per level, the
 each sample is ONE row gather (`ops.gather.quad_gather`, the hand-written
 kernel on the card) followed by a weighted corner/point sum.
 
-- `ms_deform_attn_core`: the encoder and teacher-forced sites, and the
-  decode step under `CAPE_DECODE_PREQUAD=0`. Heads fold into the gather's
+- `ms_deform_attn_core`: the quad-row core. Heads fold into the gather's
   batch, so it gathers once per level instead of once per (level, head)
   as the JAX package does: the same function with H x fewer launches.
   `gather_impl` selects another formulation of the same function.
@@ -24,12 +24,10 @@ kernel on the card) followed by a weighted corner/point sum.
   which packs the frozen memory once and samples every (batch, head)'s
   L*P points with one gather per layer and step.
 - `ms_deform_attn_core_naive`: the direct 4-corner gather, the test oracle.
-- `ms_deform_attn`: the dispatch of the model's sites. A site that
-  autograd records under 'auto', and every site with `use_pallas=True`,
-  runs the whole op as one autograd function: the forward kernel of
-  `ops.msda_kernel` (the port of `ms_deform_attn_pallas`) and its
-  backward kernel, which save only the value, the locations and the
-  weights. Every other call is `ms_deform_attn_core`.
+- `ms_deform_attn`: the dispatch of the model's sites; the whole op
+  (`_MSDeformAttnWholeOp`: the forward kernel of `ops.msda_kernel`, the
+  port of `ms_deform_attn_pallas`, and its backward kernel, which save
+  only the value, the locations and the weights) or the core.
 
 Every function here is differentiable in the value, the sampling locations
 and the attention weights: the gather's backward is the scatter kernel of
@@ -37,11 +35,54 @@ and the attention weights: the gather's backward is the scatter kernel of
 `ops.msda_fused`, the whole op's `ops.msda_kernel.msda_backward`, and the
 bilinear and attention weights are plain PyTorch.
 
-The formulation is selected as in the JAX package: the `gather_impl`
-argument, else `CAPE_MSDA_GATHER` (`ops.gather.default_gather_impl`), with
-`CAPE_MSDA_TINY` consulted under 'auto' at sites of few gather rows; both
-variables are read at every call. Within a formulation the tensor's device
-alone picks the kernel (CUDA) or its plain version (CPU).
+The selection. Three environment variables, read here alone and at every
+call, as the JAX package reads them:
+
+- `CAPE_MSDA_GATHER` (`default_gather_impl`): 'auto' (unset), or 'xla' /
+  'mxu', which are the quad-row path as 'auto' is (the JAX package has two
+  row gathers there, the port one); 'fused', 'fusedq', 'naive', 'flat'
+  force those formulations at every site.
+- `CAPE_MSDA_TINY`: under 'auto' alone, the formulation of sites of at
+  most `_NAIVE_MAX_ROWS` gather rows (`resolve_impl`; the decode step).
+- `CAPE_DECODE_PREQUAD` (`decode_prequad`): '0' makes the decode keep each
+  layer's plain (B, S, H, Dh) value instead of its quad slab.
+
+`selection()` is their values: the key of every captured program
+(`graphs`). A `gather_impl` argument wins over the variables. Within a
+route the tensor's device alone picks the kernel (CUDA) or its plain
+version (CPU).
+
+Route table: what runs at each kind of site under each selection.
+
+  training site under autograd (`ms_deform_attn` with grad on and an
+  input that requires it: the encoder and teacher-forced decoder layers)
+    'auto'             the whole op, where `_whole_op_route` finds that
+                       the kernels take the shapes and dtypes; else the
+                       quad-row core (`quad_gather`, `quad_scatter`)
+    'xla', 'mxu'       the quad-row core
+    'fused' ... 'flat' that formulation's core
+    CAPE_MSDA_TINY     at a tiny site under 'auto': that name's core
+    use_pallas=True    the whole op, whatever the selection
+  no-grad encoder site (`ms_deform_attn` without autograd: serving, eval
+  and the decode's prologue; also the teacher-forced decoder there)
+    'auto','xla','mxu' the quad-row core
+    'fused' ... 'flat' that formulation's core
+    CAPE_MSDA_TINY     at a tiny site under 'auto': that name's core
+    use_pallas=True    the whole op (`msda_forward`)
+  decode step (`models.decoder.Decoder.forward_step`, Lq = 1)
+    'auto', slabs      one `ops.decode_step.layer_step` kernel a layer,
+                       the quad gather folded in, where
+                       `decode_step.refusal` is None (a CUDA flagship
+                       layer in bf16); where it refuses, the chain of
+                       modules with `ms_deform_attn_core_prequad`
+    any other name     refused (the MSDA selection is not 'auto'): the
+                       chain with `ms_deform_attn_core_prequad`, which
+                       gathers quad rows whatever the name and warns for
+                       a whole-core name
+    CAPE_DECODE_PREQUAD=0  refused (no quad slab): the chain against the
+                       plain value, where the step is a no-grad site of
+                       `ms_deform_attn` as above (4 rows: tiny)
+    use_pallas=True    no effect on quad slabs
 """
 
 from __future__ import annotations
@@ -54,7 +95,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import trace
-from .gather import default_gather_impl, quad_gather
+from .gather import quad_gather
 from .msda_fused import fused_level_sample, quadfused_level_sample
 from .msda_kernel import msda_backward, msda_forward, msda_plan
 
@@ -67,10 +108,32 @@ _NAIVE_MAX_ROWS = 256
 #: the names that mean the quad-row path (see `default_gather_impl`)
 _QUAD_ROW_IMPLS = ("auto", "xla", "mxu")
 
+#: the variables of the selection, the only ones this package reads for it
+_VARIABLES = ("CAPE_MSDA_GATHER", "CAPE_MSDA_TINY", "CAPE_DECODE_PREQUAD")
 
-def _resolve_impl_for_shape(n_rows: int) -> str:
-    """Shape-aware resolution of the process default (n_rows = Lq * P),
-    the counterpart of `cape_tpu/ops/msda.py:69-88`.
+
+def selection() -> Tuple[Optional[str], ...]:
+    """The values of the selection's variables (None where unset), read
+    now: what a body captured now would run under."""
+    return tuple(os.environ.get(k) for k in _VARIABLES)
+
+
+def default_gather_impl() -> str:
+    """The process-wide MSDA formulation (`CAPE_MSDA_GATHER`), read at
+    every call: the counterpart of `cape_tpu/ops/gather_mxu.py:194-219`.
+    The names and what they select are in the module's route table."""
+    choice = os.environ.get("CAPE_MSDA_GATHER", "auto").lower()
+    if choice in ("auto", "xla", "mxu", "fused", "fusedq", "naive", "flat"):
+        return choice
+    raise ValueError(
+        f"CAPE_MSDA_GATHER={choice!r}: expected 'xla', 'mxu', 'fused', "
+        "'fusedq', 'naive', 'flat' or 'auto'"
+    )
+
+
+def resolve_impl(n_rows: int) -> str:
+    """The formulation of a site of `n_rows` gather rows (Lq * P), the
+    counterpart of `cape_tpu/ops/msda.py:69-88`.
 
     A forced CAPE_MSDA_GATHER wins at every shape; only 'auto' consults
     CAPE_MSDA_TINY, and only at tiny call sites. The JAX package's batch
@@ -81,6 +144,12 @@ def _resolve_impl_for_shape(n_rows: int) -> str:
     if impl == "auto" and n_rows <= _NAIVE_MAX_ROWS:
         return os.environ.get("CAPE_MSDA_TINY", "").lower() or impl
     return impl
+
+
+def decode_prequad() -> bool:
+    """Whether the decode packs each layer's quad slab once a request
+    (`precompute_quad_slab`); False under `CAPE_DECODE_PREQUAD=0`."""
+    return os.environ.get("CAPE_DECODE_PREQUAD", "1") != "0"
 
 
 def _level_offsets(spatial_shapes: Shapes) -> Tuple[int, ...]:
@@ -167,21 +236,14 @@ def ms_deform_attn_core(
         gather_impl: 'auto' | 'xla' | 'mxu' for the quad-row path,
             'fused' / 'fusedq' for the single-kernel formulations, 'naive'
             for the direct 4-corner gather, 'flat' for the single-gather
-            form, 'zero' for the measurement-only ablation that returns
-            zeros. None = the CAPE_MSDA_GATHER process default, with
-            CAPE_MSDA_TINY consulted at or below `_NAIVE_MAX_ROWS` gather
-            rows (the decode step).
+            form. None = the selection (`resolve_impl`).
 
     Returns:
         (B, Lq, H * Dh) attended features.
     """
     if gather_impl is None:
-        gather_impl = _resolve_impl_for_shape(
+        gather_impl = resolve_impl(
             sampling_locations.shape[1] * sampling_locations.shape[4])
-    if gather_impl == "zero":
-        # measurement-only ablation, see ms_deform_attn_core_prequad
-        return value.new_zeros((value.shape[0], sampling_locations.shape[1],
-                                value.shape[2] * value.shape[3]))
     whole_core = {"naive": ms_deform_attn_core_naive,
                   "flat": ms_deform_attn_core_flat,
                   "fused": ms_deform_attn_core_fused,
@@ -344,10 +406,10 @@ def ms_deform_attn_core_prequad(
         quad_slab: (B*H, S', 4*Dh) from `precompute_quad_slab`.
         sampling_locations: (B, Lq, H, L, P, 2); attention_weights
             (B, Lq, H, L, P) as in `ms_deform_attn_core`.
-        gather_impl: None = the process default. A prequad site is a pure
-            row gather from the packed slab, so only the quad-row names
-            apply ('zero' returns zeros, measurement only); any other
-            selection warns and uses the quad gather.
+        gather_impl: None = the selection (`resolve_impl`). A prequad
+            site is a pure row gather from the packed slab, so only the
+            quad-row names apply; any other name warns and uses the quad
+            gather.
     """
     BH, _, C = quad_slab.shape
     Dh = C // 4
@@ -355,12 +417,7 @@ def ms_deform_attn_core_prequad(
     if BH != B * H or L != len(spatial_shapes):
         raise ValueError("quad slab does not match the sampling shapes")
     if gather_impl is None:
-        gather_impl = _resolve_impl_for_shape(Lq * L * P)
-    if gather_impl == "zero":
-        # measurement-only ablation (CAPE_MSDA_TINY=zero): no gather and no
-        # blend, so a probe can price the cross-attention's share of the
-        # decode step. NOT a numerically valid decode.
-        return quad_slab.new_zeros((B, Lq, H * Dh))
+        gather_impl = resolve_impl(Lq * L * P)
     if gather_impl not in _QUAD_ROW_IMPLS:
         # 'naive', 'flat', 'fused' and 'fusedq' are whole-core formulations
         # that need the unpacked (B, S, H, Dh) value; say so instead of
@@ -474,7 +531,7 @@ class _MSDeformAttnWholeOp(torch.autograd.Function):
 def _whole_op_route(value, sampling_locations, attention_weights) -> bool:
     """Whether a call without `use_pallas` takes the whole-op function:
     autograd records it (grad mode on and an input that requires grad),
-    the selection resolves to 'auto' (`_resolve_impl_for_shape`), and the
+    the selection resolves to 'auto' (`resolve_impl`), and the
     kernels take its shapes and dtypes (the same answer on every
     device)."""
     if not (torch.is_grad_enabled() and any(
@@ -483,7 +540,7 @@ def _whole_op_route(value, sampling_locations, attention_weights) -> bool:
         return False
     B, S, H, Dh = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
-    if _resolve_impl_for_shape(Lq * P) != "auto" \
+    if resolve_impl(Lq * P) != "auto" \
             or value.dtype not in (torch.float32, torch.bfloat16) \
             or attention_weights.dtype != value.dtype \
             or sampling_locations.dtype != torch.float32:
@@ -497,16 +554,12 @@ def _whole_op_route(value, sampling_locations, attention_weights) -> bool:
 
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
                    attention_weights, use_pallas: bool = False):
-    """Backend dispatch; every route computes the same function.
-
-    The whole-op function (`msda_forward` and `msda_backward`, counted by
-    the `msda.whole_op` trace counter) takes the call with `use_pallas=True`
-    and where `_whole_op_route` says so: an 'auto' site that autograd
-    records, where the quad-row core's saved gathered rows and the backward
-    of its blend are the cost. Every other call, a forced
-    `CAPE_MSDA_GATHER` / `CAPE_MSDA_TINY` name or a call without gradients
-    (serving, eval, the decode), is `ms_deform_attn_core` in the selected
-    formulation."""
+    """Backend dispatch; every route computes the same function (the
+    module's route table). The whole op, counted by the `msda.whole_op`
+    trace counter, takes the call with `use_pallas=True` and where
+    `_whole_op_route` says so: there the quad-row core's saved gathered
+    rows and the backward of its blend are the cost. Every other call is
+    `ms_deform_attn_core` in the selected formulation."""
     if not (use_pallas or _whole_op_route(value, sampling_locations,
                                           attention_weights)):
         return ms_deform_attn_core(

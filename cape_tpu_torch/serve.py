@@ -10,7 +10,7 @@ prototype and returns pixel keypoints in the original image frame:
   results), so every decode runs at one shape;
 - one batched autoregressive decode on the card (`eval.evaluate.decode`:
   replays of the CUDA graphs captured at the first request of the
-  batch's shape, one host read per `models.cape.DECODE_CHUNK` tokens);
+  batch's shape, one host read a token but the last);
 - host postprocessing: trim to the category keypoint count, map back
   through resize + crop into original pixel coordinates.
 

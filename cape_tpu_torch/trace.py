@@ -25,8 +25,8 @@ off:
 
 - `graphs.captures`: CUDA graphs captured (`graphs._Graph`);
 - `decode.steps`: token bodies run, on either decode route;
-- `decode.host_reads`: the host's reads of "has every sample finished?"
-  between two chunks of token bodies;
+- `decode.host_reads`: the host's reads of "has every sample finished?",
+  one after every token body but the last;
 - `msda.whole_op`: MSDA calls that took the whole-op autograd function
   (`ops.msda.ms_deform_attn`); a captured step counts its sites once, at
   the capture;

@@ -145,8 +145,8 @@ and exits non-zero at the first phase that fails:
    `CAPE_DECODE_PREQUAD=0`), `CAPE_DECODE_PREQUAD=0` and
    `use_pallas_msda`, at the random weights' length and at 17 tokens,
    with the host's reads of the exit flag per request counted under
-   CUDA's sync debug mode; the decode timed at every `DECODE_CHUNK` of a
-   sweep; a decode step's ms; a flagship request eager and captured in
+   CUDA's sync debug mode (one a token but the last of the cap); a decode
+   step's ms; a flagship request eager and captured in
    turns (ms, profiled device busy and idle share, peak memory, the
    profiler's count of gather kernels in a replay against the counter);
    two real updates of the flagship (8 micro-steps of 4 images) eager and
@@ -158,8 +158,8 @@ and exits non-zero at the first phase that fails:
 
 Launch counters: a captured graph's warm-up and capture count nothing; a
 replay adds the launches it holds, so every count is that of the kernels
-the card ran on the path (a decode runs whole chunks of `DECODE_CHUNK`
-token bodies, `_bodies`).
+the card ran on the path (a decode runs one token body a token,
+`_bodies`).
 
 The line before last is a JSON object with every kernel's launches, error
 and times; the last line is `{"ok": true, "device": {...}}`. A kernel has
@@ -1388,10 +1388,6 @@ def phase_serving(torch, np, card):
 
 
 # ----------------------------------------------------------------------
-#: `graphs.DECODE_CHUNK` values timed against each other by `phase_graphs`
-CHUNK_SWEEP = (1, 2, 4, 8)
-
-
 def _busy_ms(events) -> float:
     """Union of the device kernel intervals of profiler events, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -1410,10 +1406,8 @@ def _busy_ms(events) -> float:
 
 def _bodies(steps, length=200):
     """Token bodies a decode runs to end `steps` tokens under the cap
-    `length`: whole chunks of `DECODE_CHUNK`, the last cut at the cap."""
-    from cape_tpu_torch.models.cape import DECODE_CHUNK
-
-    return min(length, -(-steps // DECODE_CHUNK) * DECODE_CHUNK)
+    `length`: one a token."""
+    return min(length, steps)
 
 
 def _decode_inputs(torch, np, cfg, batch=8, seed=5):
@@ -1475,9 +1469,9 @@ def _held_by_programs(torch, graphs, model):
 
 def _graph_decodes(torch, np, model, model_p, card):
     """Captured against eager decodes (bit-equal) for every selection, the
-    host reads per request, the chunk sweep and the decode step's ms."""
+    host reads per request and the decode step's ms."""
     from cape_tpu_torch import graphs, trace
-    from cape_tpu_torch.models.cape import DECODE_CHUNK, decode_chunked
+    from cape_tpu_torch.models.cape import autoregressive_decode
 
     cfg = model.cfg
     inputs = _decode_inputs(torch, np, cfg)
@@ -1495,7 +1489,8 @@ def _graph_decodes(torch, np, model, model_p, card):
         for force in (None, 17):
             with selection(**env), warnings.catch_warnings():
                 warnings.simplefilter("ignore")     # the prepacked `fused`
-                eager = decode_chunked(m, *inputs, force_length=force)
+                eager = autoregressive_decode(m, *inputs,
+                                              force_length=force)
                 graphs.clear(m)
                 first = graphs.decode(m, *inputs, force_length=force)
                 check(len(graphs.programs(m)) == 1,
@@ -1515,8 +1510,8 @@ def _graph_decodes(torch, np, model, model_p, card):
                       f"{label}, force_length {force}: captured {k} is not "
                       "the eager decode's")
             n_reads = trace.counters()["decode.host_reads"] - r0
-            check(n_reads == len(syncs)
-                  and n_reads <= -(-steps // DECODE_CHUNK),
+            # one read a token but the last of the cap
+            check(n_reads == len(syncs) == min(steps, cfg.seq_len - 1),
                   f"{label}: {n_reads} reads of the exit flag, host syncs "
                   f"at {syncs}, for {steps} tokens")
             check(sum(counts.values()) > 0,
@@ -1525,39 +1520,16 @@ def _graph_decodes(torch, np, model, model_p, card):
             print(f"graphs decode {label}, force_length {force}: captured "
                   f"== eager bit for bit ({steps} steps, "
                   f"{_bodies(steps)} bodies); a replayed request reads the "
-                  f"exit flag {n_reads} times (ceil(steps / "
-                  f"{DECODE_CHUNK}) = {-(-steps // DECODE_CHUNK)}), then "
-                  f"its outputs once; launches {counts}", flush=True)
+                  f"exit flag {n_reads} times (once a token), then its "
+                  f"outputs once; launches {counts}", flush=True)
 
-    # the chunk sweep: the captured decode at each DECODE_CHUNK, random
-    # weights' length and a trained one's, in turns
-    sweep = {}
-    try:
-        for rep in range(3):
-            for chunk in (CHUNK_SWEEP[::-1] if rep % 2 else CHUNK_SWEEP):
-                graphs.DECODE_CHUNK = chunk
-                graphs.clear(model)
-                for force in (None, 17):
-                    graphs.decode(model, *inputs, force_length=force)
-                    sweep.setdefault((chunk, force), []).extend(_walls(
-                        torch, lambda: graphs.decode(
-                            model, *inputs, force_length=force)))
-    finally:
-        graphs.DECODE_CHUNK = DECODE_CHUNK
-        graphs.clear(model)
-    for (chunk, force), w in sorted(sweep.items(), key=lambda kv: (
-            kv[0][1] or 0, kv[0][0])):
-        print(f"graphs chunk sweep: DECODE_CHUNK {chunk}, "
-              f"{'7 steps' if force is None else f'{force} steps'}: decode "
-              f"ms median {np.median(w):.3f}, mean {np.mean(w):.3f} of "
-              f"{[round(t, 3) for t in w]} ({card})", flush=True)
-
+    graphs.clear(model)
     # a decode step's ms, eager and captured: (decode at 17 tokens - at 1)
     # / the bodies between them
     step_ms = {}
     for route, fn in (
-            ("eager", lambda f: decode_chunked(model, *inputs,
-                                               force_length=f)),
+            ("eager", lambda f: autoregressive_decode(model, *inputs,
+                                                      force_length=f)),
             ("captured", lambda f: graphs.decode(model, *inputs,
                                                  force_length=f))):
         for f in (1, 17):

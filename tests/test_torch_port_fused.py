@@ -13,6 +13,8 @@ invariants are checked over random shapes, and `_emulate_fwd` walks a
 plan as the kernel does, against the plain version and the Pallas kernel.
 """
 
+import pathlib
+import re
 import warnings
 
 import numpy as np
@@ -27,8 +29,9 @@ import jax.numpy as jnp
 from cape_tpu.ops import msda as jax_msda
 from cape_tpu.ops import msda_fused as jax_fused
 
-from cape_tpu_torch.ops import gather as port_gather
+import cape_tpu_torch
 from cape_tpu_torch.ops import msda as port_msda
+from cape_tpu_torch.ops.msda import default_gather_impl
 from cape_tpu_torch.ops import msda_fused as port_fused
 
 from test_torch_port_ops import LOC_RANGES, SHAPES, _core_grads, _msda_inputs
@@ -312,7 +315,7 @@ def test_core_gather_impl_matches_jax_and_naive(impl, lo, hi):
 @pytest.mark.parametrize("impl", ["auto", "xla", "mxu", "naive"])
 def test_core_other_gather_impl_names(impl):
     """'auto', 'xla' and 'mxu' are the quad-row path, bit for bit; 'naive'
-    is the oracle; 'zero' returns zeros; an unknown name raises."""
+    is the oracle; an unknown name raises, 'zero' among them."""
     value, loc, w = (torch.from_numpy(a) for a in _msda_inputs(33))
     got = port_msda.ms_deform_attn_core(value, SHAPES, loc, w,
                                         gather_impl=impl)
@@ -320,14 +323,11 @@ def test_core_other_gather_impl_names(impl):
         want = port_msda.ms_deform_attn_core_naive(value, SHAPES, loc, w)
     else:
         want = port_msda.ms_deform_attn_core(value, SHAPES, loc, w)
-    assert torch.equal(got, want)
-    zero = port_msda.ms_deform_attn_core(value, SHAPES, loc, w,
-                                         gather_impl="zero")
-    assert zero.shape == got.shape and zero.dtype == got.dtype
-    assert not zero.any() and got.abs().max() > 0
-    with pytest.raises(ValueError, match="unknown gather impl"):
-        port_msda.ms_deform_attn_core(value, SHAPES, loc, w,
-                                      gather_impl="bogus")
+    assert torch.equal(got, want) and got.abs().max() > 0
+    for unknown in ("zero", "bogus"):
+        with pytest.raises(ValueError, match="unknown gather impl"):
+            port_msda.ms_deform_attn_core(value, SHAPES, loc, w,
+                                          gather_impl=unknown)
 
 
 # -- the selection -------------------------------------------------------------
@@ -344,7 +344,7 @@ def test_default_gather_impl_names(monkeypatch, name):
     from cape_tpu.ops.gather_mxu import default_gather_impl as jax_default
 
     monkeypatch.setenv("CAPE_MSDA_GATHER", name)
-    got = port_gather.default_gather_impl()
+    got = default_gather_impl()
     assert got == name.lower()
     if name != "auto":
         assert got == jax_default()
@@ -354,20 +354,46 @@ def test_default_gather_impl_unknown_name_raises_as_jax(monkeypatch):
     from cape_tpu.ops.gather_mxu import default_gather_impl as jax_default
 
     _clear_env(monkeypatch)
-    assert port_gather.default_gather_impl() == "auto"
+    assert default_gather_impl() == "auto"
     monkeypatch.setenv("CAPE_MSDA_GATHER", "bogus")
     with pytest.raises(ValueError) as jax_err:
         jax_default()
     with pytest.raises(ValueError) as port_err:
-        port_gather.default_gather_impl()
+        default_gather_impl()
     assert str(port_err.value) == str(jax_err.value)
+
+
+#: the variables of the MSDA selection, each with a value that is not its
+#: default
+SELECTION = {"CAPE_MSDA_GATHER": "fused", "CAPE_MSDA_TINY": "naive",
+             "CAPE_DECODE_PREQUAD": "0"}
+
+
+@pytest.mark.parametrize("name", list(SELECTION))
+def test_selection_is_read_in_ops_msda_alone(monkeypatch, name):
+    """Setting a variable of the selection changes `ops.msda.selection()`,
+    the key of every captured program, and no other module of the package
+    reads it from `os.environ`: a body that a captured program runs sees
+    no variable that its key lacks."""
+    for k in SELECTION:
+        monkeypatch.delenv(k, raising=False)
+    unset = port_msda.selection()
+    monkeypatch.setenv(name, SELECTION[name])
+    assert port_msda.selection() != unset
+    root = pathlib.Path(cape_tpu_torch.__file__).parent
+    readers = [f"{path.relative_to(root)}:{n}"
+               for path in sorted(root.rglob("*.py"))
+               for n, line in enumerate(path.read_text().splitlines(), 1)
+               if re.search(r"\benviron\b", line) and name in line]
+    assert readers and all(r.startswith("ops/msda.py:") for r in readers), \
+        readers
 
 
 def test_resolve_impl_is_shape_aware(monkeypatch):
     """As `tests/test_msda_core.py::test_auto_impl_is_shape_aware`: only
     'auto' consults CAPE_MSDA_TINY, only at tiny sites; a forced
     CAPE_MSDA_GATHER wins at every shape."""
-    resolve, tiny = port_msda._resolve_impl_for_shape, port_msda._NAIVE_MAX_ROWS
+    resolve, tiny = port_msda.resolve_impl, port_msda._NAIVE_MAX_ROWS
     assert tiny == jax_msda._NAIVE_MAX_ROWS
     _clear_env(monkeypatch)
     assert resolve(4) == resolve(tiny + 1) == "auto"
@@ -456,9 +482,6 @@ def test_prequad_warns_for_whole_core_formulations(monkeypatch, impl):
     with pytest.warns(UserWarning, match=repr(impl)):
         port_msda.ms_deform_attn_core_prequad(slab, SHAPES, loc, w,
                                               gather_impl=impl)
-    zero = port_msda.ms_deform_attn_core_prequad(slab, SHAPES, loc, w,
-                                                 gather_impl="zero")
-    assert zero.shape == want.shape and not zero.any()
 
 
 def test_cpu_calls_do_not_count_as_launches():
