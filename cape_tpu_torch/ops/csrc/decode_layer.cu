@@ -21,8 +21,9 @@
 // inside a `jit`, where XLA fuses this glue. On the card the same step ran
 // as ~420 ATen kernels a layer, each a few microseconds of launch and
 // latency for a handful of bytes. The decode sites' quad gather
-// (`csrc/gather.cu`) is folded in: `gather.cu` stays the encoder's gather
-// and every forced selection's.
+// (`csrc/gather.cu`) is folded in: `gather.cu` serves forced selections,
+// refused or tiny sites and the decode chain; under `auto` the encoder
+// runs `msda_forward_kernel`.
 //
 // Bound: bytes. At batch 8 a launch reads the layer's ~1.48 M parameters
 // (2.96 MB in bf16; the sampling offsets' projection is fp32), 1,024 quad

@@ -54,21 +54,18 @@ version (CPU).
 
 Route table: what runs at each kind of site under each selection.
 
-  training site under autograd (`ms_deform_attn` with grad on and an
-  input that requires it: the encoder and teacher-forced decoder layers)
-    'auto'             the whole op, where `_whole_op_route` finds that
-                       the kernels take the shapes and dtypes; else the
+  `ms_deform_attn` (the encoder and the teacher-forced decoder layers:
+  training under autograd; serving, eval and the decode's prologue
+  without it)
+    'auto'             the whole op (`_MSDeformAttnWholeOp`; without
+                       autograd its forward alone runs and nothing is
+                       saved), where `_whole_op_route` finds that the
+                       kernels take the shapes and dtypes; else the
                        quad-row core (`quad_gather`, `quad_scatter`)
     'xla', 'mxu'       the quad-row core
     'fused' ... 'flat' that formulation's core
     CAPE_MSDA_TINY     at a tiny site under 'auto': that name's core
     use_pallas=True    the whole op, whatever the selection
-  no-grad encoder site (`ms_deform_attn` without autograd: serving, eval
-  and the decode's prologue; also the teacher-forced decoder there)
-    'auto','xla','mxu' the quad-row core
-    'fused' ... 'flat' that formulation's core
-    CAPE_MSDA_TINY     at a tiny site under 'auto': that name's core
-    use_pallas=True    the whole op (`msda_forward`)
   decode step (`models.decoder.Decoder.forward_step`, Lq = 1)
     'auto', slabs      one `ops.decode_step.layer_step` kernel a layer,
                        the quad gather folded in, where
@@ -529,15 +526,10 @@ class _MSDeformAttnWholeOp(torch.autograd.Function):
 
 
 def _whole_op_route(value, sampling_locations, attention_weights) -> bool:
-    """Whether a call without `use_pallas` takes the whole-op function:
-    autograd records it (grad mode on and an input that requires grad),
-    the selection resolves to 'auto' (`resolve_impl`), and the
-    kernels take its shapes and dtypes (the same answer on every
+    """Whether a call without `use_pallas` takes the whole op, with or
+    without autograd: the selection resolves to 'auto' (`resolve_impl`)
+    and the kernels take its shapes and dtypes (the same answer on every
     device)."""
-    if not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (value, sampling_locations,
-                                      attention_weights))):
-        return False
     B, S, H, Dh = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     if resolve_impl(Lq * P) != "auto" \
@@ -557,9 +549,9 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations,
     """Backend dispatch; every route computes the same function (the
     module's route table). The whole op, counted by the `msda.whole_op`
     trace counter, takes the call with `use_pallas=True` and where
-    `_whole_op_route` says so: there the quad-row core's saved gathered
-    rows and the backward of its blend are the cost. Every other call is
-    `ms_deform_attn_core` in the selected formulation."""
+    `_whole_op_route` says so: there the quad-row core's gathered rows,
+    their blend and (under autograd) its backward are the cost. Every
+    other call is `ms_deform_attn_core` in the selected formulation."""
     if not (use_pallas or _whole_op_route(value, sampling_locations,
                                           attention_weights)):
         return ms_deform_attn_core(

@@ -28,8 +28,8 @@ off:
 - `decode.host_reads`: the host's reads of "has every sample finished?",
   one after every token body but the last;
 - `msda.whole_op`: MSDA calls that took the whole-op autograd function
-  (`ops.msda.ms_deform_attn`); a captured step counts its sites once, at
-  the capture;
+  (`ops.msda.ms_deform_attn`), with or without grad; a captured step or
+  decode counts its sites once, at the capture;
 - `swin.window_attn`: Swin window-attention calls that took the kernel
   route (`ops.window_attn.window_attention` on CUDA tensors); counted
   like `msda.whole_op`;

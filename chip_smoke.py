@@ -41,8 +41,11 @@ and exits non-zero at the first phase that fails:
 3. the serving path at the flagship width (`CAPEConfig()` defaults:
    ResNet-50, 512 px, 6+6 layers, bf16, random weights from a seed):
    `CAPEPredictor(batch_size=8)` answers 3 requests of 8 images; the
-   kernels' launch counters must show the path went through them (the
-   encoder's gathers, and one decode-layer launch a layer and token);
+   kernels' launch counters must show the path went through them (one
+   whole-op `msda_forward` launch an encoder layer, no gather, and one
+   decode-layer launch a layer and token); the no-grad encoder's device
+   ms a batch of 8 under `CAPE_MSDA_GATHER=xla` (the quad-row core) and
+   under `auto` (the whole op);
 4. the same weights with `use_pallas_msda=True`: one request through the
    whole-op MSDA kernel;
 5. the same weights under `CAPE_MSDA_GATHER=fused` and `fusedq` with
@@ -57,7 +60,9 @@ and exits non-zero at the first phase that fails:
    `MP100Dataset`, 12 fixed 1-shot episodes in 2 batches of 8 (4 padding
    rows) built with 1 and 4 loader threads (byte-equal);
    `evaluate_cape` over `prefetch(..., transform=to_device)` with the
-   auto decode cap, twice (identical stats), then under `fused` with
+   auto decode cap, twice (identical stats; the second profiled: one
+   `msda_forward_kernel` an encoder layer and batch, no
+   `quad_gather_kernel`), then under `fused` with
    `CAPE_DECODE_PREQUAD=0`; launch counts against the decode steps, and
    the per-batch split of the wall (waiting for the batch, decode, host
    scoring) with episodes per second;
@@ -92,7 +97,8 @@ and exits non-zero at the first phase that fails:
    trained parameter moves, and their decode raises the JAX package's
    ValueError; v2 and v3 take 2 micro-steps under `fused` (48/24 forward
    and backward launches, no gather); the legacy support encoder and
-   `dec_qkv_proj=False` answer a request of 8 (enc + dec x steps gathers)
+   `dec_qkv_proj=False` answer a request of 8 (6 whole-op forwards, a
+   decode-layer launch a layer and token)
    and take 4 micro-steps (12 whole-op launches each); the fp32 loss and
    gradients of v2, v3, v41 and
    the legacy encoder on the card against fp64 on the CPU, at the reduced
@@ -148,7 +154,9 @@ and exits non-zero at the first phase that fails:
    CUDA's sync debug mode (one a token but the last of the cap); a decode
    step's ms; a flagship request eager and captured in
    turns (ms, profiled device busy and idle share, peak memory, the
-   profiler's count of gather kernels in a replay against the counter);
+   profiler's count of gather, whole-op MSDA and decode-layer kernels in
+   a request against the counters: 6 `msda_forward_kernel` and no
+   `quad_gather_kernel` in the prologue);
    two real updates of the flagship (8 micro-steps of 4 images) eager and
    captured under `fused` (masters bit-equal at dropout 0) and `auto`
    (within `RESUME_AUTO_TOL`), and at dropout 0.1 (whether the masks
@@ -174,8 +182,9 @@ case's working set is below the 50 MB L2 (its inputs stay cached between
 the calls of a loop) and "above the L2" where it is not. The two row
 kernels' entries also carry `library_device_ms` (the library call
 captured and replayed the same way), and the kernels the evaluation path
-runs `eval_launches` (its default run for `quad_gather`, its `fused` run
-for `fused_fwd`), the kernels the training entry point runs
+runs `eval_launches` (its default run for `quad_gather` and
+`msda_forward`, its `fused` run for `fused_fwd`), the kernels the
+training entry point runs
 `train_loop_launches` (its auto run for `quad_gather`, `msda_forward` and
 `msda_backward`, its `fused` epoch for `fused_fwd` and `fused_bwd`), and
 every kernel
@@ -1269,6 +1278,43 @@ def _check_results(np, results, n_images, n_kpts):
         check(r["generated"].shape == (n_kpts,), "generated shape")
 
 
+def _encoder_ms(torch, np, model, card):
+    """The no-grad deformable encoder of a served batch of 8 (512 px):
+    device ms a batch (`device_ms`: 3 calls captured, replayed) under
+    `CAPE_MSDA_GATHER=xla` (the quad-row core) and under `auto` (the
+    whole op), their launches, and the two memories' largest gap."""
+    cfg = model.cfg
+    imgs = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8),
+        device="cuda")
+    with torch.no_grad():
+        x = (imgs.float() / 255.0).to(model.dtype).permute(0, 3, 1, 2)
+        feats = model.backbone(x)
+        srcs = [model.input_projs[i](feats[i]) for i in range(3)]
+        if cfg.num_feature_levels > 3:
+            srcs.append(model.input_projs[3](feats[-1]))
+    ms, mem, counts = {}, {}, {}
+    for label, impl in (("xla", "xla"), ("auto", None)):
+        with selection(CAPE_MSDA_GATHER=impl), torch.no_grad():
+            _reset_counts()
+            mem[label] = model.encode_features(srcs)
+            counts[label] = {k: v for k, v in _counts().items() if v}
+            ms[label] = device_ms(
+                torch, lambda: model.encode_features(srcs), launches=3,
+                replays=3)
+    zero = dict.fromkeys(_counts(), 0)
+    _check_counts(zero | counts["xla"], "the no-grad encoder under xla",
+                  quad_gather=cfg.enc_layers * cfg.num_feature_levels)
+    _check_counts(zero | counts["auto"], "the no-grad encoder under auto",
+                  msda_forward=cfg.enc_layers)
+    gap = (mem["auto"].float() - mem["xla"].float()).abs().max().item()
+    print(f"no-grad encoder, a batch of 8 (512 px, bf16): device ms "
+          f"xla (quad-row core) {ms['xla']:.4f}, auto (whole op) "
+          f"{ms['auto']:.4f}; launches xla {counts['xla']}, auto "
+          f"{counts['auto']}; memories differ by at most {gap:.4f} "
+          f"({card})", flush=True)
+
+
 def phase_serving(torch, np, card):
     """The flagship serving path: 3 requests of 8 images, default config;
     then one request with use_pallas_msda=True on the same weights."""
@@ -1302,13 +1348,15 @@ def phase_serving(torch, np, card):
     L = cfg.num_feature_levels
     print(f"default path: {default_counts} launches over 3 requests, "
           f"decode steps {steps}", flush=True)
-    # the encoder's gathers, and one decode_layer launch a layer a token
+    # one whole-op MSDA launch an encoder layer (no gradients: the
+    # forward alone), and one decode_layer launch a layer a token
     _check_counts(default_counts, "the default path",
-                  quad_gather=len(steps) * cfg.enc_layers * L,
+                  msda_forward=len(steps) * cfg.enc_layers,
                   decode_layer=sum(cfg.dec_layers * _bodies(s)
                                    for s in steps))
     print(f"predict ms/request (batch 8, 512 px, bf16): "
           f"{[round(t, 3) for t in times]} ({card})", flush=True)
+    _encoder_ms(torch, np, model, card)
 
     # -- use_pallas_msda=True: same weights, one request --------------------
     cfg_p = cfg.replace(use_pallas_msda=True)
@@ -1587,11 +1635,19 @@ def _graph_requests(torch, np, model, card):
         busy = _busy_ms(kernels)
         traced = sum("quad_gather_kernel" in e.name for e in kernels)
         layers = sum("decode_layer_kernel" in e.name for e in kernels)
+        whole = sum("msda_forward_kernel" in e.name for e in kernels)
         check(traced == counts["quad_gather"]
-              and layers == counts["decode_layer"],
-              f"{route} request: the profiler saw {traced} gather and "
-              f"{layers} decode-layer kernels, the counters "
-              f"{counts['quad_gather']} and {counts['decode_layer']}")
+              and layers == counts["decode_layer"]
+              and whole == counts["msda_forward"],
+              f"{route} request: the profiler saw {traced} gather, "
+              f"{layers} decode-layer and {whole} whole-op MSDA kernels, "
+              f"the counters {counts['quad_gather']}, "
+              f"{counts['decode_layer']} and {counts['msda_forward']}")
+        # the prologue's encoder: one whole-op launch a layer, no gather
+        check(whole == model.cfg.enc_layers and traced == 0,
+              f"{route} request: {whole} msda_forward_kernel and {traced} "
+              f"quad_gather_kernel launches; the encoder needs "
+              f"{model.cfg.enc_layers} and 0")
         r = res.setdefault(route, {"walls": [], "peaks": [], "idle": []})
         r["walls"] += walls
         r["peaks"].append(peak)
@@ -1599,7 +1655,8 @@ def _graph_requests(torch, np, model, card):
         print(f"graphs request {route}: ms {[round(t, 3) for t in walls]}; "
               f"profiled wall {wall:.3f} ms, device busy {busy:.3f} ms, "
               f"idle {100 * (1 - busy / wall):.2f}%, {len(kernels)} device "
-              f"events, {traced} gather kernels traced = the counter; peak "
+              f"events, {whole} msda_forward_kernel and {traced} "
+              f"quad_gather_kernel traced = the counters; peak "
               f"memory {peak} bytes above what was allocated before, "
               f"{base} ({card})", flush=True)
     return res
@@ -1991,10 +2048,13 @@ def phase_eval(torch, np, model, card, root):
     weights: a synthetic MP-100 tree on disk -> the val `MP100Dataset` ->
     12 fixed 1-shot episodes in 2 batches of 8 (4 padding rows) built with
     1 and with 4 threads -> `prefetch(..., transform=to_device)` ->
-    `evaluate_cape` under the auto decode cap, twice, then once under
-    `CAPE_MSDA_GATHER=fused` with `CAPE_DECODE_PREQUAD=0`; launch counts
-    checked against the decode steps. A check at a toy size: its times are
-    not the eval's (`phase_eval_sized` measures those)."""
+    `evaluate_cape` under the auto decode cap, twice (the second
+    profiled), then once under `CAPE_MSDA_GATHER=fused` with
+    `CAPE_DECODE_PREQUAD=0`; launch counts checked against the decode
+    steps. A check at a toy size: its times are not the eval's
+    (`phase_eval_sized` measures those)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from cape_tpu_torch.data.episodic import eval_batch_plan
 
     t0 = time.perf_counter()
@@ -2053,12 +2113,26 @@ def phase_eval(torch, np, model, card, root):
     first = run("eval, default path")
     stats, counts, steps = first.stats, first.counts, first.steps
     _check_counts(counts, "the eval's default path",
-                  quad_gather=len(steps) * enc,
+                  msda_forward=len(steps) * cfg.enc_layers,
                   decode_layer=sum(cfg.dec_layers * _bodies(s, ev.cap)
                                    for s in steps))
-    again = run("eval, default path again").stats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = run("eval, default path again").stats
     check(again == stats, f"a second eval gave other stats: {again} "
           f"against {stats}")
+    # the captured prologue of each batch of 8: one whole-op MSDA launch
+    # an encoder layer, no gather
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    whole = sum("msda_forward_kernel" in n for n in names)
+    gathers = sum("quad_gather_kernel" in n for n in names)
+    check(whole == len(steps) * cfg.enc_layers and gathers == 0,
+          f"the eval's second run: the profiler saw {whole} "
+          f"msda_forward_kernel and {gathers} quad_gather_kernel launches "
+          f"over {len(steps)} batches")
+    print(f"eval, default path again, profiled: {whole} msda_forward_kernel"
+          f" and {gathers} quad_gather_kernel launches over {len(steps)} "
+          f"batches of {eb} ({card})", flush=True)
     r = run("eval, CAPE_MSDA_GATHER=fused CAPE_DECODE_PREQUAD=0",
             CAPE_MSDA_GATHER="fused", CAPE_DECODE_PREQUAD="0")
     fused, fcounts, fsteps = r.stats, r.counts, r.steps
@@ -2110,7 +2184,6 @@ def phase_eval_sized(torch, np, model, card, root):
           f"loads) 1 thread {build_ms[1]:.3f}, 4 threads "
           f"{build_ms[4]:.3f}; {visible} visible GT keypoints", flush=True)
 
-    enc = cfg.enc_layers * cfg.num_feature_levels
     runs = {}
     for label, forced, eager in (
             ("sized eval, random weights' decode length", False, False),
@@ -2119,7 +2192,8 @@ def phase_eval_sized(torch, np, model, card, root):
         r = runs[label] = _eval_run(torch, np, model, ev, n, eb, visible,
                                     label, trained_length=forced,
                                     eager=eager)
-        _check_counts(r.counts, label, quad_gather=len(r.steps) * enc,
+        _check_counts(r.counts, label,
+                      msda_forward=len(r.steps) * cfg.enc_layers,
                       decode_layer=sum(cfg.dec_layers * _bodies(s, ev.cap)
                                        for s in r.steps))
         if forced:
@@ -2135,8 +2209,8 @@ def phase_eval_sized(torch, np, model, card, root):
         share = {k: 100 * sum(getattr(r, k)) / r.wall
                  for k in ("wait", "decode", "score")}
         rest = r.decode[1:]
-        print(f"{label}: decode steps {r.steps}; quad_gather launches "
-              f"{r.counts['quad_gather']}; wall {r.wall:.3f} ms, "
+        print(f"{label}: decode steps {r.steps}; msda_forward launches "
+              f"{r.counts['msda_forward']}; wall {r.wall:.3f} ms, "
               f"{n / r.wall * 1e3:.3f} episodes/s; first batch: waiting "
               f"{r.wait[0]:.3f}, decode {r.decode[0]:.3f}, scoring "
               f"{r.score[0]:.3f} ms; batches 2-{nb}: waiting "
@@ -2388,14 +2462,15 @@ def phase_train_loop(torch, np, card, root):
     L = cfg.num_feature_levels
     per_micro = (cfg.enc_layers + cfg.dec_layers) * L
     enc = cfg.enc_layers * L
-    val_gathers = len(a.steps) * (enc + per_micro)
-    # training sites take the whole-op kernels; validation has no grad
+    # every MSDA site takes the whole-op kernels: training's forward and
+    # backward, validation's (a decode's encoder and the eval loss's
+    # teacher-forced forward, no grad) the forward alone
     sites = cfg.enc_layers + cfg.dec_layers
     _check_counts(a.counts, "the training run (auto)",
-                  quad_gather=val_gathers,
                   decode_layer=sum(cfg.dec_layers * _bodies(s)
                                    for s in a.steps),
-                  msda_forward=n_epochs * micro * sites,
+                  msda_forward=n_epochs * micro * sites
+                  + len(a.steps) * (cfg.enc_layers + sites),
                   msda_backward=n_epochs * micro * sites)
 
     # the backbone: the folded npz values are the affines' masters and did
@@ -3087,10 +3162,11 @@ def phase_fp32_grads(torch, np):
 
 
 def phase_fp32_checks(torch, np, model):
-    """fp32: use_pallas encoder memory vs the default's on the card, the
-    card (kernels) vs the CPU (plain versions) for one image, and the
-    fused formulations vs the default path on the card. Returns the fp32
-    models on the card and on the CPU (same weights)."""
+    """fp32: the default encoder memory (the whole op) vs the quad-row
+    core's (`xla`) on the card, the card (kernels) vs the CPU (plain
+    versions) for one image, and the fused formulations vs the default
+    path on the card. Returns the fp32 models on the card and on the CPU
+    (same weights)."""
     from cape_tpu_torch import CAPE
     from cape_tpu_torch.models.cape import autoregressive_decode
 
@@ -3098,20 +3174,18 @@ def phase_fp32_checks(torch, np, model):
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = model.cfg.replace(bf16=False)
     m32 = CAPE(cfg32, device="cuda", generator=torch.Generator().manual_seed(0))
-    m32p = CAPE(cfg32.replace(use_pallas_msda=True), device="cuda",
-                generator=torch.Generator().manual_seed(0))
-    m32p.load_state_dict(m32.state_dict())
     rng = np.random.default_rng(1)
     imgs = rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8)
     with torch.inference_mode():
         x = torch.as_tensor(imgs, device="cuda")
         mem = m32.encode_image(x)
-        mem_p = m32p.encode_image(x)
-    err = (mem - mem_p).abs().max().item()
-    print(f"fp32 encoder memory, use_pallas_msda vs default on the card: "
-          f"max abs err {err:.3e} (tolerance 1e-4 abs + 1e-4 rel)", flush=True)
-    torch.testing.assert_close(mem_p, mem, atol=1e-4, rtol=1e-4)
-    del m32p
+        with selection(CAPE_MSDA_GATHER="xla"):
+            mem_x = m32.encode_image(x)
+    err = (mem - mem_x).abs().max().item()
+    print(f"fp32 encoder memory, default (whole op) vs xla (quad-row core) "
+          f"on the card: max abs err {err:.3e} (tolerance 1e-4 abs + 1e-4 "
+          f"rel)", flush=True)
+    torch.testing.assert_close(mem_x, mem, atol=1e-4, rtol=1e-4)
 
     m_cpu = CAPE(cfg32, device="cpu", generator=torch.Generator().manual_seed(2))
     m_cpu.load_state_dict(m32.state_dict())
@@ -3452,7 +3526,8 @@ def phase_variants(torch, np, card, root):
         counts = _counts()
         _check_results(np, res, len(imgs), len(PROTO_17))
         steps = max(r["length"] for r in res)
-        _check_counts(counts, f"the {name} request", quad_gather=enc,
+        _check_counts(counts, f"the {name} request",
+                      msda_forward=base.enc_layers,
                       decode_layer=base.dec_layers * _bodies(steps))
         add(counts)
         print(f"  {name}: a request of 8 (warm) {ms:.3f} ms, {steps} decode "
@@ -3550,7 +3625,7 @@ def phase_variants(torch, np, card, root):
     _check_results(np, res, len(imgs), len(PROTO_17))
     steps = max(r["length"] for r in res)
     _check_counts(counts, "the imported checkpoint's request",
-                  quad_gather=enc,
+                  msda_forward=base.enc_layers,
                   decode_layer=base.dec_layers * _bodies(steps))
     add(counts)
     want = in_memory.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
@@ -4003,14 +4078,14 @@ def phase_ddp(torch, np, card, model, ev, single):
           f"wall ({card})", flush=True)
 
 
-#: the kernels of the default paths: decodes and validation gather in the
-#: encoder and run a flagship-width decoder layer's step as one kernel,
-#: training takes the whole-op MSDA kernels
+#: the kernels of the default paths: every MSDA site of the encoders and
+#: the teacher-forced decoder takes the whole-op kernels (the forward alone
+#: without gradients), a flagship-width decoder layer's step is one kernel
 WORKFLOW_KERNELS = ("quad_gather", "quad_scatter", "msda_forward",
                     "msda_backward", "decode_layer")
-TRAINS = dict(quad_gather=True, quad_scatter=False, msda_forward=True,
+TRAINS = dict(quad_gather=False, quad_scatter=False, msda_forward=True,
               msda_backward=True, decode_layer=True)
-DECODES = dict(quad_gather=True, quad_scatter=False, msda_forward=False,
+DECODES = dict(quad_gather=False, quad_scatter=False, msda_forward=True,
                msda_backward=False, decode_layer=True)
 HOST_ONLY = dict.fromkeys(WORKFLOW_KERNELS, False)
 
@@ -4069,10 +4144,11 @@ def phase_workflows(torch, np, card, root):
     try:
         with selection(DATASET_ROOT=None,
                        OUTPUT_DIR=os.path.join(root, "smoke")):
-            # the tiny model's decode keeps the chain
+            # the tiny model's decode keeps the chain, which gathers
             res, rec = _workflow(torch, "launch smoke",
                                  lambda: launch.main(["smoke"]),
-                                 **dict(TRAINS, decode_layer=False))
+                                 **dict(TRAINS, decode_layer=False,
+                                        quad_gather=True))
     finally:
         tempfile.tempdir = old_tmp
     check(len(res["history"]) == 1 and os.path.isdir(
@@ -4591,13 +4667,13 @@ def phase_decode_layer(torch, np, card):
         first = (a["pred_coords"][:, 0] - b["pred_coords"][:, 0]).abs().max(
             ).item()
         lgap = (a["pred_logits"] - b["pred_logits"]).abs().max().item()
-        enc = model.cfg.enc_layers * model.cfg.num_feature_levels
+        enc = model.cfg.enc_layers
         bodies = _bodies(steps, cap or 200)
         _check_counts(counts["kernel"], f"{what} (kernel)",
-                      quad_gather=enc,
+                      msda_forward=enc,
                       decode_layer=model.cfg.dec_layers * bodies)
-        _check_counts(counts["chain"], f"{what} (chain)",
-                      quad_gather=enc + model.cfg.dec_layers * bodies)
+        _check_counts(counts["chain"], f"{what} (chain)", msda_forward=enc,
+                      quad_gather=model.cfg.dec_layers * bodies)
         # the first token's coordinates, before any re-tokenisation: the
         # benchmark's eval limit on a coordinate's gap to the fp32
         # reference, which each route meets. Later tokens read the bins
@@ -4747,7 +4823,7 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}", flush=True)
         kernels = phase_kernels(torch, card) + phase_window_attn(torch, card)
         kernels.append(phase_decode_layer(torch, np, card))
-        model, default_counts, pallas_counts, fused_counts = phase_serving(
+        model, default_counts, _, fused_counts = phase_serving(
             torch, np, card)
         phase_graphs(torch, np, card, model)
         ev, eval_run, eval_counts, eval_fused_counts = phase_eval(
@@ -4785,7 +4861,7 @@ def main() -> int:
     # (`quad_scatter` under CAPE_MSDA_GATHER=xla)
     launches = {"quad_gather": default_counts["quad_gather"],
                 "decode_layer": default_counts["decode_layer"],
-                "msda_forward": pallas_counts["msda_forward"],
+                "msda_forward": default_counts["msda_forward"],
                 "msda_backward": train_counts["msda_backward"],
                 "quad_scatter": fused_bwd_counts["quad"],
                 "fused_fwd": fused_counts["fused_fwd"],
@@ -4796,6 +4872,7 @@ def main() -> int:
     # and the evaluation path's runs (default path, then `fused`), and the
     # training entry point's (its run under auto, then its `fused` epoch)
     eval_launches = {"quad_gather": eval_counts["quad_gather"],
+                     "msda_forward": eval_counts["msda_forward"],
                      "decode_layer": eval_counts["decode_layer"],
                      "fused_fwd": eval_fused_counts["fused_fwd"]}
     for k in kernels:

@@ -129,6 +129,34 @@ def test_encode_image_uint8(image_norm):
     _close(got, want, atol=1e-3, rtol=1e-3)
 
 
+def test_encode_image_without_gradients_takes_the_whole_op(tiny,
+                                                          monkeypatch):
+    """The no-grad encoder (serving's and eval's prologue): under 'auto'
+    each of its `enc_layers` MSDA sites takes the whole op, once a call,
+    and the memory matches the JAX package's as `test_encode_image_uint8`
+    does; under 'xla' none does, and the two encodings agree to fp32
+    summation order (~1e-6 at magnitudes ~4)."""
+    from cape_tpu_torch import trace
+
+    cfg, jm, params, pm = tiny
+    imgs = np.random.default_rng(5).integers(0, 255, (2, 64, 64, 3),
+                                             dtype=np.uint8)
+    monkeypatch.delenv("CAPE_MSDA_GATHER", raising=False)
+    monkeypatch.delenv("CAPE_MSDA_TINY", raising=False)
+    n0 = trace.counters().get("msda.whole_op", 0)
+    with torch.inference_mode():
+        got = pm.encode_image(torch.from_numpy(imgs))
+    assert trace.counters().get("msda.whole_op", 0) == n0 + cfg.enc_layers
+    want = jm.apply({"params": params}, imgs,
+                    method=jax_cape.CAPE.encode_image)
+    _close(got, want, atol=1e-3, rtol=1e-3)
+    monkeypatch.setenv("CAPE_MSDA_GATHER", "xla")
+    with torch.inference_mode():
+        core = pm.encode_image(torch.from_numpy(imgs))
+    assert trace.counters().get("msda.whole_op", 0) == n0 + cfg.enc_layers
+    torch.testing.assert_close(got, core, atol=1e-5, rtol=1e-5)
+
+
 def test_resnet_dc5_dilation():
     """The DC5 branch: layer4 keeps stride 16, later blocks dilate by 2."""
     import jax

@@ -11,10 +11,11 @@ and the dispatch that pairs it with the forward, on the CPU.
   cell edges, Lq * P on both sides of the tiny-site line (256), the
   flagship's heads (8 x 32) and the tiny config's (4 x 16);
 - `msda_bwd_plan`'s tiling at the port's sites;
-- `ms_deform_attn`'s routing: under autograd 'auto' takes the whole-op
-  function (the `msda.whole_op` counter moves); without gradients, under
-  a forced selection or at a shape the kernels do not take, the core runs
-  as before, bit for bit.
+- `ms_deform_attn`'s routing: under 'auto' every call the kernels take
+  takes the whole-op function (the `msda.whole_op` counter moves), with
+  or without autograd; under a forced selection, or at a shape the
+  kernels do not take, the core runs as before, bit for bit, with or
+  without gradients.
 """
 
 import numpy as np
@@ -165,21 +166,67 @@ def test_auto_under_autograd_takes_the_whole_op(monkeypatch):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
 
 
-def test_without_gradients_the_quad_row_core_runs(monkeypatch):
-    monkeypatch.delenv("CAPE_MSDA_GATHER", raising=False)
-    value, loc, attn, _ = _inputs(8, LEVELS, Lq=70, H=4, Dh=16)
-    want = port_msda.ms_deform_attn_core(value, LEVELS, loc, attn)
-    n0 = _whole_ops()
+def _without_gradients(value, loc, attn, levels):
+    """`ms_deform_attn` in each way a call goes unrecorded: under
+    `torch.no_grad()` (inputs that require grad), under
+    `torch.inference_mode()`, and with grad mode on but no input that
+    requires grad."""
     with torch.no_grad():
         v, lc, a = (x.clone().requires_grad_(True)
                     for x in (value, loc, attn))
-        got = port_msda.ms_deform_attn(v, LEVELS, lc, a)
+        got = port_msda.ms_deform_attn(v, levels, lc, a)
     with torch.inference_mode():
-        got_inf = port_msda.ms_deform_attn(value, LEVELS, loc, attn)
-    # grad mode on, but no input that requires grad
-    got_plain = port_msda.ms_deform_attn(value, LEVELS, loc, attn)
+        got_inf = port_msda.ms_deform_attn(value, levels, loc, attn)
+    got_plain = port_msda.ms_deform_attn(value, levels, loc, attn)
+    return got, got_inf, got_plain
+
+
+def test_auto_without_gradients_takes_the_whole_op(monkeypatch):
+    """No autograd under 'auto': the whole op, once a call (the counter
+    moves by 3), bit for bit `msda_forward`'s; the core's function to fp32
+    summation order; nothing that requires grad comes out."""
+    monkeypatch.delenv("CAPE_MSDA_GATHER", raising=False)
+    monkeypatch.delenv("CAPE_MSDA_TINY", raising=False)
+    value, loc, attn, _ = _inputs(8, LEVELS, Lq=70, H=4, Dh=16)
+    want = mk.msda_forward_plain(value, LEVELS, loc, attn)
+    core = port_msda.ms_deform_attn_core(value, LEVELS, loc, attn)
+    n0 = _whole_ops()
+    outs = _without_gradients(value, loc, attn, LEVELS)
+    assert _whole_ops() == n0 + 3
+    for g in outs:
+        assert not g.requires_grad
+        assert torch.equal(g, want)
+        torch.testing.assert_close(g, core, atol=2e-6, rtol=1e-5)
+
+
+def test_without_gradients_the_quad_row_core_runs(monkeypatch):
+    """A head of 4 bf16 values (8 bytes, not a 16-byte lane), which the
+    kernel refuses: under 'auto' and without gradients the quad-row core
+    runs as before, bit for bit, and the counter stays."""
+    monkeypatch.delenv("CAPE_MSDA_GATHER", raising=False)
+    monkeypatch.delenv("CAPE_MSDA_TINY", raising=False)
+    value, loc, attn, _ = _inputs(8, LEVELS, Lq=70, H=2, Dh=4)
+    value, attn = value.to(torch.bfloat16), attn.to(torch.bfloat16)
+    want = port_msda.ms_deform_attn_core(value, LEVELS, loc, attn,
+                                         gather_impl="xla")
+    n0 = _whole_ops()
+    outs = _without_gradients(value, loc, attn, LEVELS)
     assert _whole_ops() == n0
-    for g in (got, got_inf, got_plain):
+    for g in outs:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("impl", ["xla", "mxu", "fused", "naive", "flat"])
+def test_forced_selection_keeps_its_formulation_without_grad(monkeypatch,
+                                                             impl):
+    monkeypatch.setenv("CAPE_MSDA_GATHER", impl)
+    value, loc, attn, _ = _inputs(14, LEVELS, Lq=70, H=4, Dh=16)
+    want = port_msda.ms_deform_attn_core(value, LEVELS, loc, attn,
+                                         gather_impl=impl)
+    n0 = _whole_ops()
+    outs = _without_gradients(value, loc, attn, LEVELS)
+    assert _whole_ops() == n0
+    for g in outs:
         assert torch.equal(g, want)
 
 
