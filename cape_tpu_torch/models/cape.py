@@ -3,8 +3,9 @@ decoder, plus the autoregressive decode loop: the port of
 `cape_tpu.models.cape`.
 
 - The backbone is the one `cfg.backbone` names (`BACKBONES`): ResNet-50
-  (`models.backbone`) or DINO-4scale's Swin-L (`models.swin`), each with
-  a test copy; the input projections take its channels.
+  (`models.backbone`), DINO-4scale's Swin-L (`models.swin`) or ViTDet-L
+  (`models.vitdet`), each with a test copy; the input projections take
+  its channels.
 - One module, one parameter set, built and initialised on an explicit
   device from an explicit `torch.Generator` (seeded by `cfg.seed` when none
   is given).
@@ -51,6 +52,7 @@ from .layers import default_init_, normal_, uniform_, xavier_uniform_, zeros_
 from .position_encoding import image_sine_pe_2d
 from .support_encoder import GeometricSupportEncoder, SupportPoseGraphEncoder
 from .swin import SWIN, SwinTransformer
+from .vitdet import VITDET, ViTDet
 
 
 def level_shapes(image_size: int, num_levels: int,
@@ -64,18 +66,20 @@ def level_shapes(image_size: int, num_levels: int,
 
 
 #: the backbones `cfg.backbone` names: ResNet-50 and its one-block test
-#: copy (`models.backbone`), DINO's Swin-L and its test copy (`models.swin`)
-BACKBONES = ("resnet50", "resnet_tiny") + tuple(SWIN)
+#: copy (`models.backbone`), DINO's Swin-L and its test copy (`models.swin`),
+#: ViTDet-L and its test copy (`models.vitdet`)
+BACKBONES = ("resnet50", "resnet_tiny") + tuple(SWIN) + tuple(VITDET)
 
 
 def build_backbone(cfg: CAPEConfig) -> nn.Module:
     """The backbone `cfg.backbone` names (its `channels` those of the
     stride-8/16/32 maps it returns); another name raises."""
-    if cfg.backbone in SWIN:
+    if cfg.backbone in SWIN or cfg.backbone in VITDET:
         if cfg.dilation:
             raise ValueError(f"backbone={cfg.backbone!r}: DC5 dilation is "
                              "ResNet-50's only")
-        return SwinTransformer(cfg.backbone, cfg.input_channels)
+        make = ViTDet if cfg.backbone in VITDET else SwinTransformer
+        return make(cfg.backbone, cfg.input_channels)
     if cfg.backbone in ("resnet50", "resnet_tiny"):
         blocks = (1, 1, 1, 1) if cfg.backbone == "resnet_tiny" \
             else (3, 4, 6, 3)

@@ -30,11 +30,11 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """`nn.LayerNorm(eps=1e-5)` returning the weight dtype; an input of
-    another dtype is normalised in fp32 (flax LayerNorm)."""
+    """`nn.LayerNorm(eps=1e-5)` (or `eps`) returning the weight dtype; an
+    input of another dtype is normalised in fp32 (flax LayerNorm)."""
 
-    def __init__(self, d: int):
-        super().__init__(d, eps=1e-5)
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__(d, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == self.weight.dtype:

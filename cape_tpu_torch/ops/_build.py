@@ -24,7 +24,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("decode_layer", "fused", "gather", "msda", "msda_bwd",
-           "quadfused", "scatter", "window_attn")
+           "quadfused", "rel_attn", "scatter", "window_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -33,6 +33,9 @@ off:
 - `swin.window_attn`: Swin window-attention calls that took the kernel
   route (`ops.window_attn.window_attention` on CUDA tensors); counted
   like `msda.whole_op`;
+- `vitdet.rel_attn`: ViTDet relative-position attention calls that took
+  the kernel route (`ops.rel_attn.rel_attention` on CUDA tensors);
+  counted like `msda.whole_op`;
 - `decode.layer_step`: decoder-layer decode steps that took the kernel
   (`ops.decode_step.layer_step` on CUDA tensors); counted like
   `msda.whole_op`.

@@ -29,7 +29,14 @@ and exits non-zero at the first phase that fails:
    copy; and the Swin backbone's window-attention kernels
    (`phase_window_attn`) at Swin-L's four stages at the train cell's batch,
    shifted and not: forward and every gradient against the plain version,
-   reruns bit-equal, times beside `scaled_dot_product_attention`'s; and
+   reruns bit-equal, times beside `scaled_dot_product_attention`'s; the
+   ViTDet backbone's relative-position attention kernels
+   (`phase_rel_attn`) at ViTDet-L's global (64 x 64) and window (14 x 14
+   in the grid padded to 70 x 70) sites at the train cell's batch: the
+   same checks, faster in both passes than the plain version and than
+   the library's path with a float bias from the projection's output
+   (partition, bias built, `scaled_dot_product_attention`), the
+   library's attention with the bias built beforehand timed beside; and
    the decode's layer-step kernel (`phase_decode_layer`) at batch 8 at the
    eval cell's caps and a served request's 200 slots, positions first, mid
    and last, the first layer and the last: x, ref and the written cache
@@ -69,7 +76,11 @@ and exits non-zero at the first phase that fails:
 7. DINO's Swin-L on the main paths (`phase_swin`, before the flagship's
    training): 8 captured micro-steps at the train cell's batch, 24 + 24
    window-attention and 12 + 12 MSDA launches each, every table and qkv
-   bias moved, then a request of 8 with 24 forward launches; then
+   bias moved, then a request of 8 with 24 forward launches; ViTDet-L at
+   1,024 px the same way (`phase_vitdet`): 8 captured micro-steps with
+   24 + 24 relative-attention and 12 + 12 MSDA launches each, the tables
+   and qkv biases moved, a profiled micro-step holding 24 forward, 24
+   backward and 24 table-gradient kernels, a request of 8; then
    the training path at the flagship width: `make_train_step` takes 8
    micro-steps of 4 query images (2 real AdamW updates, dropout 0.1),
    12 `msda_forward` and 12 `msda_backward` launches each (every MSDA
@@ -4423,6 +4434,257 @@ def _windows_for_sdpa(torch, wa, qkv, bias, table, heads, shift):
     return q, k, v, mask.to(qkv.dtype).contiguous()
 
 
+#: ViTDet-L's attention sites at the `cape-vitdetl.train-update` micro-batch
+#: (4 images of 1,024 px: 64 x 64 tokens of 1,024 channels, 16 heads):
+#: (label, window) of a global block and of a windowed one (14 x 14 windows
+#: in the grid padded to 70 x 70)
+VITDET_SITES = (("global 64 x 64", 0), ("window 14 in 70 x 70", 14))
+VITDET_BATCH, VITDET_GRID, VITDET_C, VITDET_HEADS = 4, 64, 1024, 16
+
+
+def _rel_inputs(torch, g, window):
+    """bf16 (qkv, bias, rel_h, rel_w, dout) of one site: the projection's
+    output and the cotangent N(0, 1), the bias N(0, 0.3), the tables
+    N(0, 0.1) (so that the bias moves the softmax)."""
+    B, S, C = VITDET_BATCH, VITDET_GRID, VITDET_C
+    side = window or S
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+
+    return (rand(B, S, S, 3 * C), rand(3 * C, std=0.3),
+            rand(2 * side - 1, 64, std=0.1), rand(2 * side - 1, 64, std=0.1),
+            rand(B, S, S, C))
+
+
+def _rel_bound_ms(window, backward):
+    """The least time of one site by the benchmark's count
+    (`reference/backbones/vitdet_l.rel_attn_sites`: each input and output
+    byte once over the real tokens, the log-sum-exps; the two products
+    over the padded windows and each query's bias products forward, twice
+    that backward; bf16 peak)."""
+    B, S, C, heads = VITDET_BATCH, VITDET_GRID, VITDET_C, VITDET_HEADS
+    side = window or S
+    m = B * (-(-S // side) * side) ** 2
+    nbytes = B * S * S * (8 if backward else 4) * C * 2 + m * heads * 4
+    flops = (2 * 2.0 * m * side * side * C + 2.0 * m * 2 * side * C) * (
+        2 if backward else 1)
+    return max(nbytes / HBM_BYTES_PER_S * 1e3, flops / 989e12 * 1e3)
+
+
+def _rel_for_sdpa(torch, maps, qkv, bias, rel_h, rel_w, heads):
+    """q, k, v (B * nW, heads, N, 64) bf16 of the partitioned windows and
+    the float bias (B * nW, heads, N, N) with which
+    `scaled_dot_product_attention` computes the same scores, from the
+    projection's output as the kernels take it (`maps`: `_rel_maps`).
+    The bias is built as the source builds it (`add_decomposed_rel_pos`):
+    the row and column terms (N, Sh) and (N, Sw) a query, then their
+    broadcast sum, written once."""
+    src, kh, kw, _ = maps
+    B, H, W, C3 = qkv.shape
+    nW, N = src.shape
+    Sh, Sw = kh.shape[1], kw.shape[1]
+    rows = qkv.reshape(B, H * W, C3)
+    tok = rows[:, src.clamp(min=0).reshape(-1)].reshape(B, nW, N, C3)
+    tok = torch.where((src >= 0)[None, :, :, None], tok,
+                      bias.expand(B, nW, N, C3))
+    q, k, v = tok.reshape(B * nW, N, 3, heads, C3 // 3 // heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    ph, pw = q @ rel_h.t(), q @ rel_w.t()
+    bias_h = ph.gather(-1, kh.expand(*ph.shape[:-1], Sh))
+    bias_w = pw.gather(-1, kw.expand(*pw.shape[:-1], Sw))
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
+        *q.shape[:-1], N)
+    return q, k, v, mask
+
+
+def _rel_maps(torch, ra, H, W, window):
+    """On the card: the token each window slot reads (`_window_maps`) and,
+    for each query, the table row of each key row and of each key column
+    (qy - ky + Sh - 1, qx - kx + Sw - 1), and the slot of each real
+    token (H * W,)."""
+    Sh, Sw = ra.sides(H, W, window)
+    src, qy, qx = ra._window_maps(H, W, window)
+    kh = qy[:, None] - torch.arange(Sh)[None] + Sh - 1
+    kw = qx[:, None] - torch.arange(Sw)[None] + Sw - 1
+    flat = src.reshape(-1)
+    inv = torch.empty(H * W, dtype=torch.long)
+    inv[flat[flat >= 0]] = torch.nonzero(flat >= 0)[:, 0]
+    return tuple(t.cuda() for t in (src, kh, kw, inv))
+
+
+def _rel_sdpa(torch, maps, qkv, bias, rel_h, rel_w, heads):
+    """The library's whole path from the projection's output to the
+    kernels' output (B, H, W, C): partition, bias built,
+    `scaled_dot_product_attention`, the real tokens gathered back."""
+    import torch.nn.functional as F
+    q, k, v, mask = _rel_for_sdpa(torch, maps, qkv, bias, rel_h, rel_w,
+                                  heads)
+    y = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    B, H, W, C3 = qkv.shape
+    y = y.transpose(1, 2).reshape(B, -1, C3 // 3)
+    return y[:, maps[3]].reshape(B, H, W, C3 // 3)
+
+
+def phase_rel_attn(torch, card):
+    """The relative-position attention kernels (csrc/rel_attn.cu) at
+    ViTDet-L's global and window sites at the train cell's batch: forward
+    and every gradient against the plain version (fp32 from the same bf16
+    inputs, autograd), reruns bit-equal, and the times of the kernels, of
+    the plain version and of `scaled_dot_product_attention` with a float
+    bias (the yardstick only: the port never calls it). The library's
+    like-for-like time (`library_ms`) is its whole path from the
+    projection's output, as the kernels take it: the partition, the bias
+    built as the source builds it, the attention, and backward all their
+    gradients, the tables' and the bias's included; beside it
+    `library_prebuilt_ms` times the attention alone with the bias built
+    beforehand (forward, and backward without the bias's gradient). The
+    kernels must beat the plain version and the library's like-for-like
+    path in both passes at both sites. Returns the two entries of the
+    kernels line."""
+    import torch.nn.functional as F
+
+    from cape_tpu_torch.ops import _build
+    from cape_tpu_torch.ops import rel_attn as ra
+
+    for line in _build.build_log("rel_attn").splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            print(f"  rel_attn: {line.strip()}", flush=True)
+    # bf16 kernels against fp32 plain from the same bf16 inputs, each gap
+    # over the fp32 tensor's largest magnitude: the output rounds the
+    # probabilities (to bf16, before the product with v) and itself once;
+    # the gradients also take P, dS and dO as bf16 operands; the tables'
+    # and the bias's gradients sum many rounded terms that cancel (a row
+    # of dS sums to 0). The window kernels' tolerances (phase_window_attn)
+    tols = {"out": 2 ** -7, "grad_qkv": 2 ** -6, "grad_bias": 2 ** -6,
+            "grad_rel_h": 2 ** -6, "grad_rel_w": 2 ** -6}
+    g = torch.Generator(device="cuda").manual_seed(25)
+    worst = dict.fromkeys(tols, 0.0)
+    entries = {"fwd": [], "bwd": []}
+    slower, behind = [], []
+    heads = VITDET_HEADS
+    for label, window in VITDET_SITES:
+        qkv, bias, rel_h, rel_w, dout = _rel_inputs(torch, g, window)
+        out, lse = ra.rel_attn_forward(qkv, bias, rel_h, rel_w, heads,
+                                       window)
+        grads = ra.rel_attn_backward(qkv, bias, rel_h, rel_w, heads, window,
+                                     out, lse, dout)
+        out2, lse2 = ra.rel_attn_forward(qkv, bias, rel_h, rel_w, heads,
+                                         window)
+        grads2 = ra.rel_attn_backward(qkv, bias, rel_h, rel_w, heads,
+                                      window, out2, lse2, dout)
+        check(torch.equal(out, out2) and torch.equal(lse, lse2)
+              and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"rel attention [{label}]: a rerun gave other bits")
+        del out2, lse2, grads2
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (qkv, bias, rel_h, rel_w)]
+        want = ra.rel_attention_plain(*leaves, heads, window)
+        want_grads = torch.autograd.grad(want, leaves, dout.float())
+        gaps = {"out": _gap(out, want)}
+        for name, got, w in zip(("grad_qkv", "grad_bias", "grad_rel_h",
+                                 "grad_rel_w"), grads, want_grads):
+            gaps[name] = _gap(got, w)
+        print(f"rel attention [{label}]: gaps over the largest magnitude "
+              f"{json.dumps(gaps)} (tolerances {json.dumps(tols)})",
+              flush=True)
+        for k, v in gaps.items():
+            check(v <= tols[k], f"rel attention [{label}]: {k} gap {v:.3e} "
+                  f"above {tols[k]:.3e}")
+            worst[k] = max(worst[k], v)
+        del want, want_grads
+        fwd_args = (qkv, bias, rel_h, rel_w, heads, window)
+        t_f = {"shape": label}
+        t_f["ms"], t_f["device_ms"] = both_ms(
+            torch, lambda: ra.rel_attn_forward(*fwd_args))
+        t_b = {"shape": label}
+        t_b["ms"], t_b["device_ms"] = both_ms(
+            torch, lambda: ra.rel_attn_backward(*fwd_args, out, lse, dout))
+        t_f["bound_ms"] = _rel_bound_ms(window, False)
+        t_b["bound_ms"] = _rel_bound_ms(window, True)
+
+        def plain_fwd():
+            with torch.no_grad():
+                ra.rel_attention_plain(*leaves, heads, window)
+
+        def plain_bwd():
+            y = ra.rel_attention_plain(*leaves, heads, window)
+            torch.autograd.grad(y, leaves, dout.float())
+
+        t_f["plain_ms"] = cuda_ms(torch, plain_fwd, iters=3, warmup=1)
+        t_b["plain_ms"] = cuda_ms(torch, plain_bwd, iters=3,
+                                  warmup=1) - t_f["plain_ms"]
+        del leaves
+        maps = _rel_maps(torch, ra, VITDET_GRID, VITDET_GRID, window)
+        t_f["library_ms"] = device_ms(
+            torch, lambda: _rel_sdpa(torch, maps, *fwd_args[:4], heads),
+            launches=5, replays=3)
+        lib = [t.detach().requires_grad_() for t in fwd_args[:4]]
+        y = _rel_sdpa(torch, maps, *lib, heads)
+        # the same function, its bias rounded to bf16: a wrong index map
+        # or layout would give a gap of order 1
+        t_f["library_gap"] = _gap(y, out)
+        check(t_f["library_gap"] <= 2 ** -4, f"rel attention [{label}]: "
+              f"the library's path computes another function "
+              f"({t_f['library_gap']:.3e})")
+        t_b["library_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(y, lib, dout,
+                                               retain_graph=True),
+            iters=5, warmup=1)
+        del lib, y
+        with torch.no_grad():
+            q, k, v, mask = _rel_for_sdpa(torch, maps, *fwd_args[:4], heads)
+        t_f["library_prebuilt_ms"] = device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), launches=5, replays=3)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        y = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        dy = torch.randn_like(y)
+        t_b["library_prebuilt_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(y, (ql, kl, vl), dy,
+                                               retain_graph=True),
+            iters=5, warmup=1)
+        del ql, kl, vl, y, dy, q, k, v, mask, maps
+        for t in (t_f, t_b):
+            t["bound_share"] = t["bound_ms"] / t["device_ms"]
+            if t["device_ms"] >= t["plain_ms"]:
+                slower.append(f"{label}: {json.dumps(t)}")
+            t["beats_library"] = t["device_ms"] < t["library_ms"]
+            if not t["beats_library"]:
+                behind.append(f"{label}: {json.dumps(t)}")
+        print(f"rel_attn_forward [{label}] {json.dumps(t_f)} ({card})",
+              flush=True)
+        print(f"rel_attn_backward [{label}] {json.dumps(t_b)} ({card})",
+              flush=True)
+        entries["fwd"].append(t_f)
+        entries["bwd"].append(t_b)
+        del out, lse, grads
+        torch.cuda.empty_cache()
+    print(f"rel attention: worst gaps {json.dumps(worst)}", flush=True)
+    check(not slower, "rel attention: the kernels are not faster than the "
+          f"plain version at {slower}")
+    check(not behind, "rel attention: the kernels are not faster than the "
+          f"library's path with a float bias at {behind}")
+    out = []
+    for part, name in (("fwd", "rel_attn_fwd"), ("bwd", "rel_attn_bwd")):
+        ts = entries[part]
+        keys = ("device_ms", "ms", "plain_ms", "library_ms",
+                "library_prebuilt_ms", "bound_ms", "bound_share")
+        out.append({"name": name, "route": "cuda",
+                    "source": "cape_tpu_torch/ops/csrc/rel_attn.cu",
+                    "replaces": None, "launches": 0,
+                    "max_gap": worst["out"] if part == "fwd" else
+                    max(worst[k] for k in tols if k != "out"),
+                    "sites": {t["shape"]: {k: t[k] for k in keys}
+                              for t in ts},
+                    "device_ms": sum(t["device_ms"] for t in ts),
+                    "bound_ms": sum(t["bound_ms"] for t in ts),
+                    "plain_ms": sum(t["plain_ms"] for t in ts),
+                    "library_ms": sum(t["library_ms"] for t in ts)})
+    return out
+
+
 #: the decode-layer kernel's cases at batch 8, (label, cache slots): the
 #: eval cell's caps (its categories' keypoint counts + 1) and a served
 #: request's 200 slots; the support padded to `max_support_keypoints`
@@ -4786,6 +5048,117 @@ def phase_swin(torch, np, card):
             "window_attn_bwd": train_counts["window_attn_bwd"]}, serve_counts
 
 
+def phase_vitdet(torch, np, card):
+    """ViTDet-L at 1,024 px on the main paths: one real update of 4
+    micro-steps of 4 images on the captured route (24 relative-attention
+    forward and 24 backward launches a micro-step, every table and qkv
+    bias moved), a profiled micro-step whose device trace holds 24 + 24
+    kernels of the two passes, then a served request of 8 images (24
+    forward launches, no backward). Returns the two paths' launch
+    counts."""
+    from cape_tpu_torch import CAPE, CAPEConfig, CAPEPredictor
+    from cape_tpu_torch import graphs
+    from cape_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = CAPEConfig(backbone="vitdet_l", image_size=1024,
+                     remat_encoder=False)
+    sites = 24
+    t0 = time.perf_counter()
+    model = CAPE(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    # the source zero-initialises the tables: draw them, so that the bias
+    # moves the softmax
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(("rel_pos_h", "rel_pos_w")):
+                p.normal_(0.0, 0.02)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"ViTDet-L model built in {time.perf_counter() - t0:.3f} s "
+          f"({n_params} parameters)", flush=True)
+    spe = cfg.episodes_per_epoch // cfg.batch_size
+    state = create_train_state(cfg, model, spe)
+    step = make_train_step(model, cfg, spe)
+    route = graphs.describe_step_route(model, cfg)
+    print(route, flush=True)
+    check(graphs.step_route(model, cfg) is None, f"ViTDet-L: {route}")
+    rng = np.random.default_rng(4)
+    batches = [_train_batch(np, cfg, rng)
+               for _ in range(2 * cfg.accumulation_steps)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [m.clone() for m in state.opt_state.masters]
+    times, train_counts = [], None
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+        m = {k: v.item() for k, v in metrics.items()}
+        print(f"ViTDet-L micro-step {i + 1}: {times[-1]:.3f} ms, total "
+              f"{m['total']:.6f}, grad_norm {m['grad_norm']:.6f}, launches "
+              f"{counts}", flush=True)
+        check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              "ViTDet-L: non-finite or zero metrics")
+        _check_counts(counts, f"ViTDet-L micro-step {i + 1}",
+                      msda_forward=12, msda_backward=12,
+                      rel_attn_fwd=sites, rel_attn_bwd=sites)
+        train_counts = counts
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(before, state.opt_state.masters))
+    still = [n for n, a, b in zip(state.opt_state.names, before,
+                                  state.opt_state.masters)
+             if torch.equal(a, b) and n.endswith(
+                 ("rel_pos_h", "rel_pos_w", "attn.qkv.bias"))]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ViTDet-L: {moved} of {len(before)} masters moved over 2 updates; "
+          f"tables and qkv biases unmoved {still[:8]}; ms per micro-step "
+          f"{[round(t, 3) for t in times]}; peak memory {peak} bytes "
+          f"({card})", flush=True)
+    check(not still and moved > 0.5 * len(before),
+          f"ViTDet-L: {moved} masters moved; unmoved {still[:8]}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batches[0], gen)
+        torch.cuda.synchronize()
+    kinds = ("rel_attn_fwd_kernel", "rel_attn_bwd_kernel",
+             "rel_attn_table_grad_kernel")
+    names = dict.fromkeys(kinds, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in kinds:
+                names[k] += k in e.name
+    print(f"ViTDet-L profiled micro-step: {json.dumps(names)}", flush=True)
+    check(names.get("rel_attn_fwd_kernel") == sites
+          and names.get("rel_attn_bwd_kernel") == sites,
+          f"ViTDet-L profiled micro-step: {names}")
+    del state, step, before, prof
+    graphs.clear(model)
+    model.eval()
+    pred = CAPEPredictor(cfg, model, batch_size=8)
+    proto = np.asarray(PROTO_17, np.float32)
+    imgs, boxes = _requests(np, 2, 8)[1]
+    pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = pred.predict(imgs, proto, bboxes=boxes, skeleton=SKELETON_17)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_results(np, res, len(imgs), len(PROTO_17))
+    serve_counts = _counts()
+    print(f"ViTDet-L request of 8: {ms:.3f} ms, launches {serve_counts} "
+          f"({card})", flush=True)
+    check(serve_counts["rel_attn_fwd"] == sites
+          and serve_counts["rel_attn_bwd"] == 0,
+          f"ViTDet-L request: {serve_counts}")
+    del pred, model
+    torch.cuda.empty_cache()
+    return {"rel_attn_fwd": train_counts["rel_attn_fwd"],
+            "rel_attn_bwd": train_counts["rel_attn_bwd"]}, serve_counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4821,7 +5194,8 @@ def main() -> int:
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
-        kernels = phase_kernels(torch, card) + phase_window_attn(torch, card)
+        kernels = phase_kernels(torch, card) + phase_window_attn(
+            torch, card) + phase_rel_attn(torch, card)
         kernels.append(phase_decode_layer(torch, np, card))
         model, default_counts, _, fused_counts = phase_serving(
             torch, np, card)
@@ -4831,6 +5205,7 @@ def main() -> int:
         sized = os.path.join(tree.name, "sized")
         phase_eval_sized(torch, np, model, card, sized)
         swin_counts, swin_serve_counts = phase_swin(torch, np, card)
+        vitdet_counts, _ = phase_vitdet(torch, np, card)
         train_model, train_counts = phase_training(torch, np, card)
         phase_training_pallas(torch, np, train_model, card)
         fused_bwd_counts = phase_training_fused(torch, np, train_model, card)
@@ -4868,7 +5243,7 @@ def main() -> int:
                 "quadfused_fwd": fused_counts["quadfused_fwd"],
                 "fused_bwd": fused_bwd_counts["fused"],
                 "quadfused_bwd": fused_bwd_counts["quadfused"],
-                **swin_counts}
+                **swin_counts, **vitdet_counts}
     # and the evaluation path's runs (default path, then `fused`), and the
     # training entry point's (its run under auto, then its `fused` epoch)
     eval_launches = {"quad_gather": eval_counts["quad_gather"],

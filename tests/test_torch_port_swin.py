@@ -271,5 +271,5 @@ def test_cli_backbone_help_lists_the_names():
     action = {a.dest: a for a in get_args_parser()._actions}["backbone"]
     assert all(n in action.help for n in BACKBONES)
     assert BACKBONES == ("resnet50", "resnet_tiny", "swin_L_384_22k",
-                         "swin_tiny")
+                         "swin_tiny", "vitdet_l", "vitdet_tiny")
     assert CAPEConfig().backbone == "resnet50"

@@ -68,6 +68,23 @@ def test_counters_count_on_and_off():
     assert trace.counters()["test.things"] == before + 4    # take keeps them
 
 
+def test_the_docstring_lists_every_counter():
+    """Every counter the port counts (`trace.count("<name>")` in its
+    sources) is listed in `trace`'s docstring, the relative-attention
+    route's `vitdet.rel_attn` among them."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(trace.__file__).parent
+    names = set()
+    for path in root.rglob("*.py"):
+        names |= set(re.findall(r'trace\.count\("([\w.]+)"',
+                                path.read_text()))
+    assert "vitdet.rel_attn" in names and "swin.window_attn" in names
+    missing = [n for n in sorted(names) if f"`{n}`" not in trace.__doc__]
+    assert not missing, missing
+
+
 def test_nesting_parents_and_requests():
     trace.enable()
     with trace.span("outside"):
